@@ -1,0 +1,35 @@
+"""nusiprop_tpu_torch — the PyTorch/CUDA port of nusiprop_tpu for one
+NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package ``nusiprop_tpu`` stays the reference; this package mirrors
+its layout module by module and imports no JAX. This slice ports the
+non-resonant main path (native-f32 tables, preconditioned f32 rows, and
+the fused trisolve march as a hand-written CUDA kernel,
+``csrc/march_tri.cu``); the rest is queued in ROADMAP.md.
+"""
+
+from nusiprop_tpu_torch.api import Evolver, pyprop
+from nusiprop_tpu_torch.config import Config, PhysicsParams
+from nusiprop_tpu_torch.models.sources import register_source
+from nusiprop_tpu_torch.models.transport import (
+    EvolveResult,
+    check_energy_conservation,
+    evolve,
+)
+from nusiprop_tpu_torch.parallel.scan import grid_scan, param_grid, stack_params
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Evolver",
+    "pyprop",
+    "register_source",
+    "EvolveResult",
+    "Config",
+    "PhysicsParams",
+    "evolve",
+    "check_energy_conservation",
+    "grid_scan",
+    "param_grid",
+    "stack_params",
+]
