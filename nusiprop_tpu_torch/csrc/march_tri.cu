@@ -9,7 +9,7 @@
 //   runs inside the block and takes the place of the TPU's sequential `t`
 //   grid axis; nothing carries across blocks.
 // * Per node, each thread computes the Sherman-Morrison reduction
-//   (_sm_node) for the bins it owns (j = tid + k*blockDim) and stores
+//   (sm_node, the JAX _sm_node) for the bins it owns (j = tid + k*blockDim) and stores
 //   c1 = CS*qv, c2 = CS*pu in shared memory.
 // * Then the descending back-substitution over j:
 //       p_j = sum_m A[off+j, m] * cy[m],   cy[off+j] = c1_j + c2_j * p_j.
@@ -50,6 +50,32 @@ struct Rows {
   const float *pg, *pat, *co, *r0, *s0, *cs, *pt;
 };
 
+// The Sherman-Morrison algebra of one bin (_sm_node), in its association
+// order. Both passes of a node recompute it from the rows and the carry,
+// so shared memory stays O(NEXT) instead of holding U and V.
+struct SmNode {
+  float w_d[3], rv_d[3];
+  float wu, inv_s, wv;
+};
+
+__device__ __forceinline__ SmNode sm_node(const Rows& rows, size_t i,
+                                          const float* phi, int NE,
+                                          const float W[3],
+                                          const float W2[3]) {
+  const float PG = rows.pg[i], PAt = rows.pat[i], CO = rows.co[i];
+  const float R0 = rows.r0[i], S0 = rows.s0[i];
+  SmNode n;
+  for (int k = 0; k < 3; ++k) {
+    const float d = 1.0f + PG * W[k] - (PAt + CO) * W2[k];
+    n.w_d[k] = W[k] / d;
+    n.rv_d[k] = (phi[k * NE] * R0 + S0) / d;
+  }
+  n.wu = n.w_d[0] * W[0] + n.w_d[1] * W[1] + n.w_d[2] * W[2];
+  n.inv_s = 1.0f / (1.0f + CO * n.wu);
+  n.wv = W[0] * n.rv_d[0] + W[1] * n.rv_d[1] + W[2] * n.rv_d[2];
+  return n;
+}
+
 __global__ void __launch_bounds__(kThreads)
 march_tri_kernel(const float* __restrict__ A, Rows rows,
                  float* __restrict__ out, int NE, int Nz, int NEXT,
@@ -83,21 +109,10 @@ march_tri_kernel(const float* __restrict__ A, Rows rows,
 
     // ---- Sherman-Morrison per bin (owner thread j % kThreads) ----
     for (int j = tid; j < NE; j += kThreads) {
-      const float PG = rows.pg[rb + j], PAt = rows.pat[rb + j];
-      const float CO = rows.co[rb + j], R0 = rows.r0[rb + j];
-      const float S0 = rows.s0[rb + j], PT = rows.pt[rb + j];
+      const SmNode n = sm_node(rows, rb + j, phi + j, NE, W, W2);
       const float CS = rows.cs[rb + j];
-      float d[3], w_d[3], rv_d[3];
-      for (int k = 0; k < 3; ++k) {
-        d[k] = 1.0f + PG * W[k] - (PAt + CO) * W2[k];
-        w_d[k] = W[k] / d[k];
-      }
-      const float wu = w_d[0] * W[0] + w_d[1] * W[1] + w_d[2] * W[2];
-      const float inv_s = 1.0f / (1.0f + CO * wu);
-      for (int k = 0; k < 3; ++k) rv_d[k] = (phi[k * NE + j] * R0 + S0) / d[k];
-      const float wv = W[0] * rv_d[0] + W[1] * rv_d[1] + W[2] * rv_d[2];
-      c1[j] = CS * (wv * inv_s);
-      c2[j] = CS * (PT * (wu * inv_s));
+      c1[j] = CS * (n.wv * n.inv_s);
+      c2[j] = CS * (rows.pt[rb + j] * (n.wu * n.inv_s));
     }
     __syncthreads();
 
@@ -125,23 +140,12 @@ march_tri_kernel(const float* __restrict__ A, Rows rows,
     // ---- x_k = V_k + PT * p * U_k, recomputed per owned bin ----
     const bool last = (t == Ns - 1);
     for (int j = tid; j < NE; j += kThreads) {
-      const float PG = rows.pg[rb + j], PAt = rows.pat[rb + j];
-      const float CO = rows.co[rb + j], R0 = rows.r0[rb + j];
-      const float S0 = rows.s0[rb + j], PT = rows.pt[rb + j];
-      float d[3], w_d[3], rv_d[3];
+      const SmNode n = sm_node(rows, rb + j, phi + j, NE, W, W2);
+      const float cws = (rows.co[rb + j] * n.wv) * n.inv_s;
+      const float reg = rows.pt[rb + j] * pv[j];
       for (int k = 0; k < 3; ++k) {
-        d[k] = 1.0f + PG * W[k] - (PAt + CO) * W2[k];
-        w_d[k] = W[k] / d[k];
-      }
-      const float wu = w_d[0] * W[0] + w_d[1] * W[1] + w_d[2] * W[2];
-      const float inv_s = 1.0f / (1.0f + CO * wu);
-      for (int k = 0; k < 3; ++k) rv_d[k] = (phi[k * NE + j] * R0 + S0) / d[k];
-      const float wv = W[0] * rv_d[0] + W[1] * rv_d[1] + W[2] * rv_d[2];
-      const float cws = (CO * wv) * inv_s;
-      const float reg = PT * pv[j];
-      for (int k = 0; k < 3; ++k) {
-        const float V = rv_d[k] - cws * w_d[k];
-        const float U = w_d[k] * inv_s;
+        const float V = n.rv_d[k] - cws * n.w_d[k];
+        const float U = n.w_d[k] * n.inv_s;
         const float x = V + reg * U;
         phi[k * NE + j] = x;
         if (last) out[((size_t)b * 3 + k) * NE + j] = x;

@@ -213,6 +213,7 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
     """
     from nusiprop_tpu_torch.models import kernels_nr_f32
 
+    # the one place the march is resolved: every entry point builds tables
     _resolve_march(cfg, params.device)  # raises for unported marches
     if cfg.phiphi or pp_tables is not None:
         raise NotImplementedError(
@@ -238,7 +239,6 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
 def evolve(params: PhysicsParams, cfg: Config, pp_tables=None) -> EvolveResult:
     """Evolve the flux of one parameter point (scalar ``params``). The
     fused march is batched; a single point rides as a batch of one."""
-    _resolve_march(cfg, params.device)  # raises for unported marches
     from nusiprop_tpu_torch.ops import march_tri
 
     res = march_tri.evolve_trisolve_fused(

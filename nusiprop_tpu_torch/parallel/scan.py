@@ -39,8 +39,8 @@ def grid_scan(params: PhysicsParams, cfg, chunk_size: int | None = None,
 
     ``chunk_size=k`` builds the tables and marches k points at a time,
     which bounds the peak memory of the eager table build at large batch
-    (the result equals the unchunked one)."""
-    transport._resolve_march(cfg, params.device)  # raises if unported
+    (the result equals the unchunked one). ``transport.build_tables``
+    raises for configs this port does not run yet."""
     from nusiprop_tpu_torch.ops import march_tri
 
     batch = params.mphi.shape[0]

@@ -1,0 +1,98 @@
+"""The hand-written CUDA march against its plain PyTorch twin on the card.
+
+This module imports no JAX, so it runs where only PyTorch and the CUDA
+toolkit are installed (tests/conftest.py imports JAX; skip it there):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
+
+Every test needs a CUDA device and skips without one. Inputs are the
+port's own tables and rows at 0.05 decades/bin (lE in [4, 9], zmax 5,
+dsnb, Majorana, phi-phi off). Gate: gated relative < 5e-5 (floor 1e-10);
+the only difference is the float32 summation order of the row dot.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nusiprop_tpu_torch as nt
+from nusiprop_tpu_torch.config import Config
+from nusiprop_tpu_torch.models import grids, mixing, sources, transport
+from nusiprop_tpu_torch.ops import march_tri
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+MNTOT = float(np.sqrt(7.42e-5) + np.sqrt(2.514e-3))
+MPHI = [3e3, 1e5, 2.7e5, 5e6]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _gated_rel(a, b, floor=1e-10):
+    a, b = a.double(), b.double()
+    scale = a.abs().amax(dim=(-1, -2), keepdim=True)
+    gate = a.abs() > scale * floor
+    return float(((b - a).abs()[gate] / a.abs()[gate]).max())
+
+
+def _inputs(n_bins, dev):
+    """The port's tables and rows for MPHI at g = 1e-2 on ``dev``."""
+    cfg = Config(N_bins_E=n_bins, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=True, phiphi=False)
+    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    gr = grids.build(cfg, dev)
+    tblG, tblAt, (A32, pref) = transport.build_tables(params, cfg)
+    nt_ = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
+    rows, _ = transport._trisolve_f32_rows(cfg, gr, params, nt_, tblG, tblAt,
+                                           pref)
+    W = tuple(float(w) for w in mixing.pmns_sq(True)[cfg.flav])
+    return cfg, params, A32.contiguous(), rows[:7], W, gr.N_steps_z
+
+
+@pytest.mark.parametrize("n_bins", [100, 300], ids=["NE100", "NE300"])
+def test_kernel_matches_plain_on_card(n_bins):
+    """Fewer bins than threads (100) and more (300, not a multiple of the
+    block size)."""
+    dev = _card()
+    _, _, A32, xs, W, Nz = _inputs(n_bins, dev)
+    before = march_tri.march_tri.launches
+    k = march_tri.march_tri(A32, xs, W, n_bins, Nz)
+    assert march_tri.march_tri.launches == before + 1
+    assert k.shape == (len(MPHI), 3, n_bins) and k.is_cuda
+    p = march_tri.march_tri_plain(A32, xs, W, n_bins, Nz)
+    assert bool(torch.isfinite(k).all())
+    rel = _gated_rel(p, k)
+    assert rel < 5e-5, rel
+
+
+def test_auto_march_runs_the_kernel_on_card():
+    """``march="auto"`` on CUDA tensors resolves to the kernel, once per
+    grid_scan chunk, and the chunks give the unchunked flux."""
+    dev = _card()
+    cfg = Config(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=True, phiphi=False)
+    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    before = march_tri.march_tri.launches
+    res = nt.grid_scan(params, cfg)
+    assert march_tri.march_tri.launches == before + 1
+    chunked = nt.grid_scan(params, cfg, chunk_size=2)
+    assert march_tri.march_tri.launches == before + 3
+    assert res.flux.is_cuda and bool(torch.isfinite(res.flux).all())
+    rel = _gated_rel(res.flux_fla, chunked.flux_fla)
+    assert rel < 5e-5, rel
+
+
+def test_kernel_refuses_strided_rows_on_card():
+    dev = _card()
+    _, _, A32, xs, W, Nz = _inputs(100, dev)
+    strided = xs[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        march_tri.march_tri(A32, (strided,) + tuple(xs[1:]), W, 100, Nz)

@@ -21,6 +21,7 @@ import nusiprop_tpu_torch as nt
 from nusiprop_tpu_torch import interop
 from nusiprop_tpu_torch.config import Config
 from nusiprop_tpu_torch.models import transport
+from nusiprop_tpu_torch.ops import march_tri as tmt
 
 torch.set_num_threads(2)
 
@@ -123,6 +124,24 @@ def test_resolve_march_refuses_unserved_configs(kw, device):
     cfg = Config(**dict(base, **kw))
     with pytest.raises(NotImplementedError, match="slice"):
         transport._resolve_march(cfg, device)
+
+
+@pytest.mark.parametrize("entry", ["grid_scan", "grid_scan_chunked",
+                                   "Evolver"])
+def test_entry_points_refuse_auto_march_on_cpu(entry):
+    """The march is resolved once, in build_tables; every entry point
+    still refuses what it cannot run, before any march."""
+    kw = dict(N_bins_E=48, lEmin=4.0, lEmax=9.0, phiphi=False)
+    before = tmt.march_tri.launches
+    with pytest.raises(NotImplementedError, match="slice C"):
+        if entry == "Evolver":
+            nt.Evolver(mphi=1e6, g=1e-3, mntot=MNTOT, si=2.0, device="cpu",
+                       **kw).evolve()
+        else:
+            p = nt.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0)
+            nt.grid_scan(p, Config(**kw),
+                         chunk_size=1 if entry == "grid_scan_chunked" else None)
+    assert tmt.march_tri.launches == before
 
 
 def test_resolve_march_serves_the_main_path():
