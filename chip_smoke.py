@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the fused march kernel (nusiprop_tpu_torch/csrc/march_tri.cu)
-from the checkout, then runs, each phase printing one JSON line:
+Builds the two hand-written kernels from the checkout, one nvcc each,
+started together: K1, the non-resonant fused march
+(nusiprop_tpu_torch/csrc/march_tri.cu), and K2, the s-channel fused
+march in fp64 (nusiprop_tpu_torch/csrc/march_ds.cu). Then it runs, each
+phase printing one JSON line:
 
-  build       nvcc build of the kernel (ptxas register/smem report)
+  build       nvcc builds (ptxas register/smem report)
   device      card name, power limit, TF32 flags (forced off)
   evolver     Evolver(...).evolve() at the production non-resonant config
               (500 bins over lE in [4, 9], zmax 5, dsnb, Majorana, NO,
@@ -22,24 +25,66 @@ from the checkout, then runs, each phase printing one JSON line:
   kernel_vs_plain  the same comparison on the first 8 production points
   no_ceiling  the same comparison at 1024 bins (NEXT 1183), batch 2, at
               g = 1e-2 where regeneration dominates
+  schannel_evolver  the golden config (test.py's: mphi 5e6, g 1e-6, 100
+              bins over lE in [4, 9], dsnb, Majorana, NO, flav 2) through
+              Evolver with march "auto" (rank1, f64) against
+              tests/data/data_massless.txt (< 1e-3 per bin), and its
+              energy drift (~0.8816)
+  schannel_grid_scan  the bench's s-channel regime (500 bins over lE in
+              [4, 9], zmax 5, batch 1024, mphi = geomspace(1e5, 1e8),
+              g = 1e-2) through grid_scan with march "rank1" and
+              "rank1_f32": warm wall times (median, min and max of
+              REPS runs) and z-steps/s at the median
+  march_ds    evolve_pallas at that batch-1024 shape (the path of K2):
+              its launches, its flux against grid_scan(rank1)'s; K2
+              against its plain twin on the full batch-1024 rows; wall
+              times as above, the kernel time, the bound and peak memory
+  march_ds_no_ceiling  K2 against its plain twin at 2048 bins, batch 2
 
 then the kernels line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises: the script exits
 non-zero and prints no last line. It needs a CUDA device.
+
+Bounds (``bound_ms``): the larger of the bytes each kernel must move
+(every input it reads read once, every output written once: K1 reads
+only the band of its table that the march touches, K2 reads DW as one
+row shared by every point) over 3.35 TB/s and
+its operations over the card's peak for their type: 67 TFLOP/s float32
+(K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
+outside the tensor cores.
 """
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 
 GATE = 5e-5        # kernel vs plain, gated relative (summation order only)
 GATE_FLOOR = 1e-10
+DS_GATE = 1e-10    # K2 vs its plain twin (same order; float64)
+DS_FLOOR = 1e-25
 MNTOT = math.sqrt(7.42e-5) + math.sqrt(2.514e-3)
 PROD = dict(N_bins_E=500, lEmin=4.0, lEmax=9.0, zmax=5.0,
             non_resonant=True, majorana=True, normal_ordering=True,
             flav=2, phiphi=False, source="dsnb")
+SCHANNEL = dict(PROD, non_resonant=False)
+GOLDEN = dict(mphi=5e6, g=1e-6, mntot=MNTOT, si=2.0, norm=6.0,
+              N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0, majorana=True,
+              normal_ordering=True, non_resonant=False, flav=2)
+REPS = 5           # warm wall-time repetitions of the s-channel paths
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
+# float32 operations per bin and node outside K1's row dot (counted from
+# csrc/march_tri.cu: two Sherman-Morrison passes, c1/c2, cy, x)
+K1_ELEM_FLOPS = 105
+# float64 operations per bin and node of K2 outside the prefix (counted
+# from csrc/march_ds.cu: izdr, M, adjugate, det, two solves, U.w, V.w, a,
+# b, the read-out) and per prefix level
+K2_NODE_FLOPS = 126
+K2_LEVEL_FLOPS = 3
 
 
 def emit(**kw):
@@ -74,6 +119,8 @@ def main():
     from nusiprop_tpu_torch import Evolver, grid_scan, param_grid
     from nusiprop_tpu_torch.config import Config
     from nusiprop_tpu_torch.models import transport
+    from nusiprop_tpu_torch.ops import cuda_build
+    from nusiprop_tpu_torch.ops import march_ds as mds
     from nusiprop_tpu_torch.ops import march_tri as mt
 
     dev = torch.device("cuda", 0)
@@ -81,10 +128,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    so = mt.build()
-    mt._load()
-    emit(phase="build", seconds=time.perf_counter() - t0, library=so,
-         ptxas=[ln for ln in mt.BUILD_LOG.splitlines() if "ptxas" in ln])
+    libs = cuda_build.build("march_tri", "march_ds")
+    cuda_build.load("march_tri", mt._declare)
+    cuda_build.load("march_ds", mds._declare)
+    emit(phase="build", seconds=time.perf_counter() - t0, libraries=libs,
+         ptxas={name: [ln for ln in log.splitlines() if "ptxas" in ln]
+                for name, log in cuda_build.BUILD_LOG.items()})
 
     card = card_line()
     emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=card,
@@ -181,7 +230,7 @@ def main():
          **public(cmp1024))
 
     cmps = (cmp1, cmp128, cmp500, cmp1024)
-    emit(kernels=[dict(
+    k1 = dict(
         name="march_tri", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_tri.cu",
         replaces="nusiprop_tpu/ops/march_tri.py:83::_make_kernel",
@@ -192,13 +241,194 @@ def main():
         max_flux_rel_vs_plain=max(cmp1["flux_rel_vs_plain"],
                                   cmp128["flux_rel_vs_plain"]),
         ms=cmp128["kernel_ms"], plain_ms=cmp128["plain_ms"],
+        **k1_bound(B, NE, Nz), library_ms=None,
         shape="batch 128, NE 500, Nz 79 (the grid_scan path's own); "
-              "also compared at batch 1, batch 8 and NE 1024 batch 2")])
+              "also compared at batch 1, batch 8 and NE 1024 batch 2")
+
+    k2 = schannel_phases(dev, card)
+    emit(kernels=[k1, k2])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def schannel_phases(dev, card):
+    """The s-channel golden path (slice B): Evolver and grid_scan through
+    the rank1 marches, and K2 through evolve_pallas. Returns K2's entry
+    of the kernels line."""
+    import numpy as np
+    import torch
+
+    from nusiprop_tpu_torch import Evolver, grid_scan, param_grid
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.ops import march_ds as mds
+
+    # ---- Evolver, march "auto" (rank1 f64), against the golden file ----
+    ev = Evolver(device=dev, **GOLDEN)
+    check(ev.config.march == "auto", "Evolver default march")
+    ev.evolve()
+    ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "data", "data_massless.txt"),
+                     skiprows=1)
+    flx = ev.get_flux_fla()
+    golden_rel = float((np.abs(flx - ref[:, 1:].T)
+                        / np.abs(ref[:, 1:].T)).max())
+    check(golden_rel < 1e-3, f"golden file per bin {golden_rel:.3e} < 1e-3")
+    drift = ev.check_energy_conservation()
+    check(abs(drift - 0.8816) < 1e-3, f"energy drift {drift} ~ 0.8816")
+    emit(phase="schannel_evolver", golden_max_rel=golden_rel,
+         energy_drift=drift, device=str(ev.device))
+
+    # ---- the bench's s-channel regime through grid_scan ----
+    B = 1024
+    cfg = Config(**SCHANNEL)
+    params = param_grid(torch.logspace(5, 8, B, dtype=torch.float64), [1e-2],
+                        mntot=MNTOT, si=2.0, norm=6.0, device=dev)
+    runs = {}
+    for march in ("rank1", "rank1_f32"):
+        c = Config(**dict(SCHANNEL, march=march))
+        res = grid_scan(params, c)                   # warm-up, kept
+        check(bool(torch.isfinite(res.flux_fla).all()), f"{march} finite")
+        check(bool((res.flux_fla >= 0).all()), f"{march} non-negative")
+        runs[march] = (res, wall_times(lambda: grid_scan(params, c)))
+    Nz = runs["rank1"][0].z.shape[-1]
+    f32_rel = gated_rel(runs["rank1"][0].flux_fla,
+                        runs["rank1_f32"][0].flux_fla)
+    check(f32_rel < 1e-3, f"rank1_f32 vs rank1 gated rel {f32_rel:.3e}")
+    emit(phase="schannel_grid_scan", batch=B, NE=cfg.N_bins_E, Nz=Nz,
+         reps=REPS, **{f"{m}_s": t for m, (_, t) in runs.items()},
+         **{f"{m}_z_steps_per_s": B * (Nz - 1) / t["median"]
+            for m, (_, t) in runs.items()},
+         rank1_f32_vs_rank1_gated_rel=f32_rel, card=card)
+
+    # ---- K2's path: evolve_pallas at the same batch-1024 shape ----
+    mds.evolve_pallas(params, cfg)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mds.march_ds_batched.launches = 0
+    fla = mds.evolve_pallas(params, cfg)
+    torch.cuda.synchronize()
+    launches = mds.march_ds_batched.launches
+    check(launches >= 1, "evolve_pallas launched K2")
+    peak = torch.cuda.max_memory_allocated()
+    t_pallas = wall_times(lambda: mds.evolve_pallas(params, cfg))
+    vs_rank1 = masked_rel(runs["rank1"][0].flux_fla, fla)
+    check(vs_rank1 < 1e-9,
+          f"evolve_pallas vs grid_scan(rank1) {vs_rank1:.3e} < 1e-9")
+    rows, meta = mds.prepare_rank1_inputs(params, cfg)
+    cmp = compare_ds(mds, rows, meta)
+    bound = k2_bound(B, meta["n_steps"], meta["NE"])
+    emit(phase="march_ds", batch=B, NE=meta["NE"],
+         n_steps=meta["n_steps"], reps=REPS, evolve_pallas_s=t_pallas,
+         z_steps_per_s=B * meta["n_steps"] / t_pallas["median"],
+         kernel_launches=launches, flux_fla_rel_vs_rank1=vs_rank1,
+         peak_mem_gb=peak / 1e9, **bound, card=card, **cmp)
+
+    # ---- no bin ceiling: 2048 bins, batch 2 ----
+    cfg_big = Config(**dict(SCHANNEL, N_bins_E=2048))
+    p2 = param_grid([1e5, 1e6], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                    device=dev)
+    rows2, meta2 = mds.prepare_rank1_inputs(p2, cfg_big)
+    cmp2 = compare_ds(mds, rows2, meta2)
+    emit(phase="march_ds_no_ceiling", batch=2, NE=2048,
+         n_steps=meta2["n_steps"], **cmp2)
+
+    return dict(
+        name="march_ds", route="cuda",
+        source="nusiprop_tpu_torch/csrc/march_ds.cu",
+        replaces="nusiprop_tpu/ops/march_ds.py:333::_make_kernel",
+        launches=launches, launches_by_path={"evolve_pallas": launches},
+        max_abs_err=max(cmp["max_abs_err"], cmp2["max_abs_err"]),
+        max_rel_vs_plain=max(cmp["max_rel_vs_plain"],
+                             cmp2["max_rel_vs_plain"]),
+        ms=cmp["kernel_ms"], plain_ms=cmp["plain_ms"], **bound,
+        library_ms=None,
+        shape=f"batch {B}, NE 500, Nz {Nz} (the "
+              "evolve_pallas path's own); also compared at NE 2048 batch 2")
+
+
+def k1_bound(B, NE, Nz):
+    """K1's least time: the part of the table it reads, seven rows and phi
+    once each, against the live triangle's multiply-adds plus the per-bin
+    algebra. The table is strictly upper triangular and the march reads
+    row r at columns r+1 .. off+NE-1 only: over all nodes that is the band
+    of NE-1 columns above the diagonal, NEXT(NE-1) - NE(NE-1)/2 entries."""
+    NEXT = NE + Nz - 2
+    band = NEXT * (NE - 1) - NE * (NE - 1) // 2
+    nbytes = 4 * (B * band + 7 * B * (Nz - 1) * NE + 3 * B * NE)
+    flops = B * (Nz - 1) * (NE * (NE - 1) + K1_ELEM_FLOPS * NE)
+    return bound(nbytes, flops, F32_FLOPS)
+
+
+def k2_bound(B, n_steps, NE):
+    """K2's least time: five float64 rows per point, the shared DW row and
+    the flux once each, against the per-bin algebra and the prefix
+    levels."""
+    levels = max(1, math.ceil(math.log2(NE)))
+    nbytes = 8 * (5 * B * n_steps * NE + n_steps * NE + 3 * B * NE)
+    flops = B * n_steps * NE * (K2_NODE_FLOPS + K2_LEVEL_FLOPS * levels)
+    return bound(nbytes, flops, F64_FLOPS)
+
+
+def bound(nbytes, flops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
+
+
+def wall_times(fn):
+    """Host-clock wall of ``fn`` (synchronized) over REPS warm runs: the
+    median, min and max in seconds."""
+    import torch
+
+    ts = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return dict(median=ts[len(ts) // 2], min=ts[0], max=ts[-1])
+
+
+def masked_rel(ref, got):
+    """Largest relative difference on entries above DS_FLOOR of each
+    point's max (tests/test_march_ds.py's mask)."""
+    scale = ref.abs().amax(dim=(-1, -2), keepdim=True)
+    gate = ref.abs() > scale * DS_FLOOR
+    return float(((got - ref).abs()[gate] / ref.abs()[gate]).max())
+
+
+def compare_ds(mds, rows, meta):
+    """K2 vs its plain twin on the same rows on the card (one plain run),
+    and the kernel's CUDA-event time over 10 launches."""
+    import torch
+
+    k = mds.march_ds_batched(rows, meta)
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    p = mds.march_ds_plain(rows, meta["W"], meta["n_steps"])
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    reps = 10
+    start.record()
+    for _ in range(reps):
+        mds.march_ds_batched(rows, meta)
+    stop.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k).all()), "K2 output finite")
+    rel = masked_rel(p, k)
+    check(rel < DS_GATE, f"K2 vs plain gated rel {rel:.3e} < {DS_GATE}")
+    return dict(max_rel_vs_plain=rel, bitwise=bool(torch.equal(k, p)),
+                max_abs_err=float((k - p).abs().max()),
+                kernel_ms=start.elapsed_time(stop) / reps, plain_ms=plain_ms)
 
 
 def march_inputs(params, cfg, tables):

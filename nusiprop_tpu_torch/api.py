@@ -4,18 +4,19 @@
 check, the ``get_*`` accessors, ``check_energy_conservation`` and the
 ``interp_flux_*`` interpolators.
 
-This slice runs the non-resonant main path through the fused march.
-phi-phi (on by default, as in the reference wrapper), ``coupling_matrix``
-and ``audit`` raise ``NotImplementedError`` naming their ROADMAP slices.
+It runs the non-resonant main path through the fused march and the
+s-channel configs (``non_resonant=False``) through the rank1 marches;
+there the default ``phiphi=True`` is inert, as in the JAX package. phi-phi
+on a non-resonant config, ``coupling_matrix`` and ``audit`` raise
+``NotImplementedError`` naming their ROADMAP slices.
 """
 
 import sys
 import warnings
 
 import numpy as np
-import torch
 
-from nusiprop_tpu_torch.config import Config, PhysicsParams
+from nusiprop_tpu_torch.config import Config, PhysicsParams, resolve_device
 from nusiprop_tpu_torch.models import transport
 from nusiprop_tpu_torch.models.transport import EvolveResult
 
@@ -25,8 +26,10 @@ class Evolver:
 
     Arguments as the JAX ``Evolver`` (reference nuSIprop.pyx:47-52
     defaults), plus:
-      march  ---- march mode ["auto": the fused CUDA march on a card]
-      device ---- torch device of every tensor [cuda if available]
+      march  ---- march mode ["auto": the fused CUDA march for
+                  non-resonant configs on a card, "rank1" for s-channel]
+      device ---- torch device of every tensor ["cuda"; raises when no
+                  card is present, pass "cpu" to run on the CPU]
     """
 
     def __init__(self, mphi, g, mntot, si, norm=1.0,
@@ -34,7 +37,7 @@ class Evolver:
                  N_bins_E=300, lEmin=12.0, lEmax=17.0,
                  zmax=5.0, flav=2, phiphi=True, source="dsnb",
                  coupling_matrix=None, extrapolation="clamp",
-                 march="auto", device=None):
+                 march="auto", device="cuda"):
         if coupling_matrix is not None:
             raise NotImplementedError(
                 "coupling_matrix (general flavor couplings) is slice E "
@@ -49,9 +52,7 @@ class Evolver:
             lEmin=float(lEmin), lEmax=float(lEmax), zmax=float(zmax),
             flav=int(flav), phiphi=bool(phiphi), source=source,
             extrapolation=extrapolation, march=march)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = PhysicsParams.create(mphi, g, mntot, si, norm,
                                            device=self.device)
         self.coupling_matrix = None

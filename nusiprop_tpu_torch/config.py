@@ -8,6 +8,10 @@
 * ``PhysicsParams`` — the five runtime-mutable physics parameters as
   float64 tensors, each either a scalar or carrying one common leading
   batch axis (a parameter grid).
+
+The entry points put their tensors on the card (``device="cuda"``) unless
+the caller passes ``device="cpu"``; ``resolve_device`` refuses a CUDA
+device where there is none rather than carrying on on the CPU.
 """
 
 from __future__ import annotations
@@ -96,6 +100,17 @@ class Config:
 _FIELDS = ("mphi", "g", "mntot", "si", "norm")
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device with no card present
+    raises (the entry points never fall back to the CPU on their own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run "
+            "on the CPU")
+    return device
+
+
 @dataclasses.dataclass
 class PhysicsParams:
     """Runtime-mutable physics parameters (nuSIprop.hpp:173-174).
@@ -117,7 +132,8 @@ class PhysicsParams:
 
     @classmethod
     def create(cls, mphi, g, mntot, si, norm=1.0,
-               device=None) -> "PhysicsParams":
+               device="cuda") -> "PhysicsParams":
+        device = resolve_device(device)
         as_f64 = lambda v: torch.as_tensor(v, dtype=torch.float64,
                                            device=device)
         vals = [as_f64(v) for v in (mphi, g, mntot, si, norm)]

@@ -11,14 +11,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from nusiprop_tpu_torch.config import Config, PhysicsParams
+from nusiprop_tpu_torch.config import Config, PhysicsParams, resolve_device
 
 
-def _t(x, device=None):
-    return torch.as_tensor(np.array(x), device=device)
+def _t(x, device):
+    return torch.as_tensor(np.array(x), device=resolve_device(device))
 
 
-def params_from_jax(p, device=None) -> PhysicsParams:
+def params_from_jax(p, device="cuda") -> PhysicsParams:
     """JAX ``PhysicsParams`` -> port ``PhysicsParams`` (float64)."""
     return PhysicsParams.create(
         *(np.array(getattr(p, k), dtype=np.float64)
@@ -30,9 +30,28 @@ def config_from_jax(cfg) -> Config:
     return Config(**dataclasses.asdict(cfg))
 
 
-def tables_from_jax(tables, device=None):
+def tables_from_jax(tables, device="cuda"):
     """The JAX ``transport.build_tables`` output for the fused march,
     ``(tblG, tblAt, (A32, pref))``, as torch tensors of the same dtypes."""
     tblG, tblAt, (A32, pref) = tables
     return (_t(tblG, device), _t(tblAt, device),
             (_t(A32, device), _t(pref, device)))
+
+
+def rank1_inputs_from_jax(inp, NE, device="cuda"):
+    """The JAX ``march_ds.prepare_rank1_inputs`` rows, stored as
+    double-single ``(hi, lo)`` float32 pairs (``PG_h``, ``PG_l``, ...)
+    padded to 128 lanes, joined into this port's float64 rows
+    ``{"PG": hi + lo, ...}`` of ``NE`` bins. DW depends on the grid only:
+    it becomes the one (n_steps, NE) row that the port shares across
+    points (a batch whose DW rows differ raises ``ValueError``)."""
+    names = sorted({k[:-2] for k in inp if k.endswith(("_h", "_l"))})
+    rows = {n: (np.asarray(inp[n + "_h"], np.float64)
+                + np.asarray(inp[n + "_l"], np.float64))[..., :NE]
+            for n in names}
+    if "DW" in rows:
+        dw = rows["DW"].reshape((-1,) + rows["DW"].shape[-2:])
+        if not (dw == dw[0]).all():
+            raise ValueError("the DW rows differ across the batch")
+        rows["DW"] = dw[0]
+    return {n: _t(v, device) for n, v in rows.items()}

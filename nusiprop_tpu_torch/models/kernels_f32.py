@@ -18,7 +18,8 @@ import math
 
 import torch
 
-from nusiprop_tpu_torch.models.kernels import scalar_width, _shift_near_minus1
+from nusiprop_tpu_torch.models.kernels import (
+    _shift_near_minus1, bc2, scalar_width)
 
 PI = math.pi
 F32 = torch.float32
@@ -34,11 +35,6 @@ _T_NEAR = 20.0
 def f(a):
     """The f64 -> f32 cast point."""
     return a.to(F32)
-
-
-def bc2(x):
-    """A batch-shaped parameter broadcast against (..., state, bin)."""
-    return x[..., None, None]
 
 
 def _atandiff32(u, xy):

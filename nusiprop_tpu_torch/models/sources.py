@@ -161,12 +161,18 @@ _REGISTRY = {
     "dsnb": lambda z, Em, Ep, si, norm_total: lum_dsnb(z, Em, Ep),
     "powerlaw": lum_powerlaw,
 }
+# elementwise in every argument, so one broadcast call serves all nodes
+BUILTIN_SOURCES = ("dsnb", "powerlaw")
 
 
 def register_source(name: str, fn) -> None:
     """Register a custom injected-source model ``fn(z, Em, Ep, si,
-    norm_total) -> (NE,)``; pass ``source=name`` to Config/Evolver."""
-    if name in ("dsnb", "powerlaw"):
+    norm_total) -> (NE,)``; pass ``source=name`` to Config/Evolver.
+    ``z``, ``si`` and ``norm_total`` are scalar tensors and ``Em``/``Ep``
+    the (NE,) bin edges: the transport maps ``fn`` over the z-nodes and
+    the parameter points with ``torch.func.vmap``, as the JAX package
+    does with ``jax.vmap``."""
+    if name in BUILTIN_SOURCES:
         raise ValueError(f"cannot override built-in source {name!r}")
     if not callable(fn):
         raise TypeError("source fn must be callable")

@@ -1,14 +1,24 @@
-"""The transport engine's main-path pieces (port of
-``nusiprop_tpu.models.transport``, slice A).
+"""The transport engine (port of ``nusiprop_tpu.models.transport``,
+slices A and B).
 
 Implicit redshift march of the binned flux (nuSIprop.hpp:176-337): from
 zero flux at z = zmax down to z = 0; per z-node the per-bin 3x3 implicit
-system closes, by Sherman-Morrison, into one scalar strictly-triangular
-solve over the descending energy bins. This slice ports the native-f32
-non-resonant pipeline: f32 tables (kernels_nr_f32), free-streaming
-preconditioned f32 rows (``_trisolve_f32_rows``) and the fused march
-(``ops/march_tri``). Every other march mode and table branch raises
-``NotImplementedError`` naming the ROADMAP slice that will port it.
+system closes into one scalar recurrence over the descending energy bins.
+Two families are ported:
+
+* non-resonant configs: native-f32 tables (kernels_nr_f32), free-
+  streaming preconditioned f32 rows (``_trisolve_f32_rows``) and the
+  fused kernel march (``ops/march_tri``);
+* s-channel configs (``non_resonant=False``): ``evolve_core`` with the
+  ``rank1`` (f64, the exactly rank-one alpha closed as a scalar affine
+  prefix), ``rank1_f32`` (free-streaming preconditioned f32 rows) and
+  ``loop`` (the reference-shaped descending-bin oracle) marches. The JAX
+  ``lax.associative_scan`` becomes the Hillis-Steele doubling of
+  ``march_ds._prefix_affine`` (``_prefix_affine``) and the JAX vmap a
+  leading batch axis.
+
+Every other march mode and table branch raises ``NotImplementedError``
+naming the ROADMAP slice that will port it.
 
 Shapes: every function takes ``PhysicsParams`` whose fields share one
 batch shape (``()`` or ``(B,)``); that shape leads every output.
@@ -19,11 +29,17 @@ from typing import NamedTuple
 import torch
 
 from nusiprop_tpu_torch.config import Config, PhysicsParams
-from nusiprop_tpu_torch.models import grids, masses, mixing, sources
+from nusiprop_tpu_torch.models import (grids, kernels, kernels_f32, masses,
+                                       mixing, sources)
 
 # bins coarser than this keep the f64 closed forms (the f32 GL3 table
 # build's error scales as bin-width^6; transport._use_f32_alpha in JAX)
 _MAX_DECADES_PER_BIN = 0.05
+
+# Exact power-of-two rescaling of the regeneration accumulation weight
+# (see _z_step_rank1): c * 2^100 always pairs with d * 2^-100.
+_RSCALE = 2.0 ** 100
+_INV_RSCALE = 2.0 ** -100
 
 
 class EvolveResult(NamedTuple):
@@ -70,39 +86,44 @@ def _table_health(tables, tau):
 
 
 _NOT_PORTED = {
-    "rank1": "slice B (s-channel golden path, ROADMAP queue 1 item 8)",
-    "rank1_f32": "slice B (s-channel golden path, ROADMAP queue 1 item 8)",
-    "loop": "slice B (s-channel golden path, ROADMAP queue 1 item 8)",
     "trisolve": "slice C (f64 closed forms, ROADMAP queue 1 item 10)",
-    "trisolve_f32": ("slice B (the non-fused f32 march _trisolve_f32_scan, "
-                     "ROADMAP queue 1 item 8)"),
+    "loop": ("slice C (the non-resonant f64 alpha table, ROADMAP queue 1 "
+             "item 10)"),
+    "trisolve_f32": ("slice F (the non-fused f32 march _trisolve_f32_scan, "
+                     "ROADMAP queue 1 item 18)"),
 }
 
 
 def _resolve_march(cfg: Config, device) -> str:
     """The march this port runs for ``cfg`` on ``device``.
 
-    ``"auto"`` resolves to the fused hand-written march
+    s-channel configs follow the JAX package off the TPU: ``"auto"``
+    resolves to ``"rank1"`` (true f64) on every device, and ``"rank1"``,
+    ``"rank1_f32"`` and ``"loop"`` run when asked. For non-resonant
+    configs ``"auto"`` resolves to the fused hand-written march
     (``"trisolve_pallas"``) only where it is the right tool: tensors on
-    CUDA, a non-resonant config, f32 tables, and production-resolution
-    bins (<= 0.05 decades/bin). Anything else raises
-    ``NotImplementedError`` naming the slice that will serve it — a
-    config is never routed to a march that cannot run it. An explicit
-    ``"trisolve_pallas"`` runs anywhere (on CPU tensors as its plain
-    PyTorch twin)."""
+    CUDA, f32 tables, and production-resolution bins (<= 0.05
+    decades/bin). Anything else raises ``NotImplementedError`` naming the
+    slice that will serve it — a config is never routed to a march that
+    cannot run it. An explicit ``"trisolve_pallas"`` runs anywhere (on CPU
+    tensors as its plain PyTorch twin)."""
     if cfg.march in ("rank1", "rank1_f32") and cfg.non_resonant:
         raise ValueError(
             f"march={cfg.march!r} is exact only for the s-channel-only "
             "kernel (non_resonant=False); use 'trisolve' or 'auto'")
     if cfg.march == "trisolve_pallas":
         return "trisolve_pallas"
+    if not cfg.non_resonant:
+        if cfg.march == "auto":
+            return "rank1"
+        if cfg.march in ("rank1", "rank1_f32", "loop"):
+            return cfg.march
+        raise NotImplementedError(
+            f"march={cfg.march!r} is not ported yet: "
+            f"{_NOT_PORTED['trisolve']}")
     if cfg.march != "auto":
         raise NotImplementedError(
             f"march={cfg.march!r} is not ported yet: {_NOT_PORTED[cfg.march]}")
-    if not cfg.non_resonant:
-        raise NotImplementedError(
-            "march='auto' for s-channel-only configs resolves to rank1/"
-            f"rank1_f32: {_NOT_PORTED['rank1']}")
     if cfg.table_dtype == "f64":
         raise NotImplementedError(
             f"table_dtype='f64' needs the f64 trisolve march: "
@@ -117,6 +138,103 @@ def _resolve_march(cfg: Config, device) -> str:
             f"{_NOT_PORTED['trisolve']}; pass march='trisolve_pallas' to "
             "run the fused march's plain PyTorch twin on CPU")
     return "trisolve_pallas"
+
+
+def _solve3(M, b):
+    """Closed-form 3x3 linear solve via the adjugate, batched over any
+    leading axes (M: (..., 3, 3), b: (..., 3)); the reference's GSL LU at
+    nuSIprop.hpp:308-313, and the ``loop`` march's independent oracle."""
+    a, b_, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b_ * B + c * C
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    x0 = A * b0 - (b_ * i - c * h) * b1 + (b_ * f - c * e) * b2
+    x1 = B * b0 + (a * i - c * g) * b1 - (a * f - c * d) * b2
+    x2 = C * b0 - (a * h - b_ * g) * b1 + (a * e - b_ * d) * b2
+    return torch.stack([x0, x1, x2], dim=-1) / det[..., None]
+
+
+def _source_lum(cfg: Config, gr, zs, si, norm_total):
+    """Per-(node, bin) source integrals (..., T, NE) at the T redshifts
+    ``zs``, dispatched through the source registry: the JAX package's
+    per-node ``_source_lum``, vmapped over the nodes there. The built-in
+    sources are elementwise and take every node in one broadcast call; a
+    registered source keeps the per-node contract (scalar z, si and
+    norm_total) and is vmapped over the nodes and the points.
+    ``si``/``norm_total`` have the batch shape."""
+    if cfg.source in sources.BUILTIN_SOURCES:
+        return sources.lum(cfg.source, zs[:, None], gr.Emin, gr.Emax,
+                           si[..., None, None], norm_total[..., None, None])
+
+    def node(z, s, n):
+        return sources.lum(cfg.source, z, gr.Emin, gr.Emax, s, n)
+
+    nodes = torch.func.vmap(node, in_dims=(0, None, None))
+    out = torch.func.vmap(nodes, in_dims=(None, 0, 0))(
+        zs, si.reshape(-1), norm_total.reshape(-1))
+    return out.reshape(si.shape + out.shape[-2:])
+
+
+def _sum3(x):
+    """x[..., 0] + x[..., 1] + x[..., 2] in that order (a fixed summation
+    order on every device and batch size)."""
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
+def _node_affine(pref, zdr, coup, lum, flux, Wf):
+    """Per-z-node affine reduction of the implicit update, batched:
+    solving M x = (flux_old + pref*(lum + reg*Wf))/zdr for every bin at
+    once gives x_j = V_j + reg_j * U_j with (..., NE, 3) U and V. The
+    system row-scaled by zdr is diag(d) + coup w w^T, solved by
+    Sherman-Morrison (see the JAX docstring; the ``loop`` march keeps the
+    adjugate ``_solve3`` as the independent oracle). ``zdr``: (..., 3, NE);
+    ``coup``: (..., NE); ``lum``: (..., NE); ``flux``: (..., 3, NE)."""
+    zdr_t = zdr.transpose(-1, -2)
+    d = zdr_t - coup[..., None] * (Wf * Wf)
+    w_d = Wf / d
+    wu = _sum3(Wf * w_d)
+    s = 1.0 + coup * wu
+    rv = flux.transpose(-1, -2) + pref * lum[..., None]
+    rv_d = rv / d
+    wv = _sum3(Wf * rv_d)
+    V = rv_d - (coup * wv / s)[..., None] * w_d
+    U = pref * w_d / s[..., None]
+    return U, V
+
+
+def _prefix_affine(a, b):
+    """Inclusive prefix composition of the affine maps s -> a*s + b along
+    the last axis, in log depth (Hillis-Steele doubling, the order of the
+    JAX ``march_ds._prefix_affine``): after the level of distance d,
+    (a, b)_j <- (a_j * a_{j-d}, a_j * b_{j-d} + b_j), with the identity
+    map (1, 0) shifted in below j = d. Returns (A_inc, B_inc)."""
+    n = a.shape[-1]
+    d = 1
+    while d < n:
+        pa = torch.cat([torch.ones_like(a[..., :d]), a[..., :-d]], dim=-1)
+        pb = torch.cat([torch.zeros_like(b[..., :d]), b[..., :-d]], dim=-1)
+        b = a * pb + b
+        a = a * pa
+        d *= 2
+    return a, b
+
+
+def _shift_in_zero(x):
+    """x shifted one place along the last axis, 0 in front (the
+    exclusive scan's read-out of the state before each step)."""
+    return torch.cat([torch.zeros_like(x[..., :1]), x[..., :-1]], dim=-1)
+
+
+def _regeneration_state(a, b):
+    """cum_j: the scalar affine recurrence run in processing (descending
+    bin) order, read before each step. a, b: (..., NE) in bin order."""
+    _, B_inc = _prefix_affine(torch.flip(a, dims=(-1,)),
+                              torch.flip(b, dims=(-1,)))
+    return torch.flip(_shift_in_zero(B_inc), dims=(-1,))
 
 
 def _f32_precond_common(cfg: Config, gr, params: PhysicsParams,
@@ -145,10 +263,7 @@ def _f32_precond_common(cfg: Config, gr, params: PhysicsParams,
     lum_a = sources.lum_rows_extended(cfg.source, edges, zi, idx + 1,
                                       params.si, norm_total)
     if lum_a is None:
-        si, nt = params.si[..., None], norm_total[..., None]
-        lum_a = torch.stack([
-            sources.lum(cfg.source, zz, gr.Emin, gr.Emax, si, nt)
-            for zz in zi], dim=-2)
+        lum_a = _source_lum(cfg, gr, zi, params.si, norm_total)
     lum_a = w(lum_a)
 
     src_counts = w(pref_a[:, None] * lum_a)
@@ -203,18 +318,101 @@ def _trisolve_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
     return xs + (steps,), scale.expand(bshape[:-2] + bshape[-1:])
 
 
+def _rank1_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
+                    tblG, tblAt, rho_ext, dE_ext, window=None, prefs=None):
+    """Per-z-node coefficient rows of the native-f32 s-channel march,
+    plus the free-streaming preconditioner scale of the final node.
+
+    Returns ``(PG, PAt, CO, R0, S0, CF, PD), scale``: seven (..., Nz-1,
+    NE) float32 rows in march order and the (..., NE) float64 scale. The
+    flux is preconditioned by the free-streaming solution (phi = F/(N0 S))
+    so the march runs in float32 while the tables and rows are formed in
+    float64 and only then cast. ``prefs``: the float64 prefactors of the
+    normalized f32 tables (kernels_f32), scalars or batch-shaped; the f64
+    tables use (1, 1, 2^-100) with the scaled rho. RANGE SAFETY: every
+    grouping pairs a small factor with a large one first and goes through
+    the ``window`` hook (identity in production; the tests pass a
+    float32-exponent flush emulator).
+    """
+    w = window if window is not None else (lambda x: x)
+    f64 = dict(dtype=torch.float64, device=gr.z.device)
+    pG, pAt, prho = (torch.as_tensor(p, **f64) for p in
+                     (prefs if prefs is not None else (1.0, 1.0, 1.0)))
+    (steps, idx, inv_dE, ndfac_a, pref_a, G_w, At_w,
+     src_counts, S, S_old, N0, N0S) = _f32_precond_common(
+        cfg, gr, params, norm_total, tblG, tblAt, w)
+    prefG_a = w(pref_a * pG[..., None])
+    prefAt_a = w(pref_a * pAt[..., None])
+    # carry the exact 2^100 scale through the CF grouping; it cancels
+    # only after the compensating (N0*S) factor has lifted the magnitude
+    rho_w = w(rho_ext[..., idx]
+              * w(ndfac_a[:, None] * (prho * _RSCALE)[..., None, None]))
+    d_w = dE_ext[idx]
+
+    rows = dict(
+        PG=w(w(prefG_a[..., :, None] * G_w) * inv_dE[None, :]),
+        PAt=w(w(prefAt_a[..., :, None] * At_w) * inv_dE[None, :]),
+        CO=w(w(At_w * inv_dE[None, :]) * pAt[..., None, None]),
+        R0=w(S_old / S),                             # fs carry ratio
+        S0=w(src_counts / N0S),                      # source in phi
+        CF=w(w(w(rho_w * inv_dE[None, :]) * N0S) * _INV_RSCALE),  # cum wt
+        PD=w(pref_a[:, None] * w(d_w / N0S)),        # reg scale
+    )
+    bshape = params.mphi.shape + S.shape[-2:]
+    xs = tuple(rows[k].to(torch.float32).expand(bshape).contiguous()
+               for k in ("PG", "PAt", "CO", "R0", "S0", "CF", "PD"))
+    scale = w(N0[..., 0, :] * S[..., -1, :])
+    return xs, scale.expand(bshape[:-2] + bshape[-1:])
+
+
+def _rank1_f32_scan(xs, W, NE: int):
+    """The native-f32 redshift march over the ``_rank1_f32_rows`` rows,
+    batched over the leading axis: per node the Sherman-Morrison solve of
+    the 3x3 system, then the regeneration recurrence closed by the affine
+    prefix. ``W``: the three PMNS weights (Python floats, rounded to
+    float32 here). Returns the preconditioned flux phi (..., 3, NE) f32."""
+    dev = xs[0].device
+    W32 = torch.tensor(W, dtype=torch.float32, device=dev)
+    W232 = W32 * W32
+    phi = torch.zeros(xs[0].shape[:-2] + (3, NE), dtype=torch.float32,
+                      device=dev)
+    for t in range(xs[0].shape[-2]):
+        PG, PAt, CO, R0, S0, CF, PD = (x[..., t, :] for x in xs)
+        zdr_t = 1.0 + (PG[..., None] * W32 - PAt[..., None] * W232)
+        # (diag(d) + c w w^T) x = r, d_k = zdr_k - c W_k^2: Sherman-Morrison
+        d = zdr_t - CO[..., None] * W232
+        w_d = W32 / d
+        wu = _sum3(W32 * w_d)
+        s = 1.0 + CO * wu
+        rv = phi.transpose(-1, -2) * R0[..., None] + S0[..., None]
+        rv_d = rv / d
+        wv = _sum3(W32 * rv_d)
+        V = rv_d - (CO * wv / s)[..., None] * w_d
+        U = w_d / s[..., None]
+        a = 1.0 + (CF * PD) * (wu / s)
+        b = CF * (wv / s)
+        cum = _regeneration_state(a, b)
+        phi = (V + (cum * PD)[..., None] * U).transpose(-1, -2)
+    return phi
+
+
 def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
     """Kernel tables ``(tblG, tblAt, (A32, pref_A))`` of the fused march:
     the float64 (..., NEXT) Gamma/alphaTilde tables of the native-f32
     build and the NORMALIZED float32 (..., NEXT, NEXT) alpha table with
     its float64 g^4 prefactor (JAX build_tables, use_f32_march branch).
 
-    Only the slice-A case is ported: Majorana with phi-phi off.
+    Only the slice-A case is ported: Majorana with phi-phi off. The
+    s-channel marches build their factorized tables inside
+    ``evolve_core``.
     """
     from nusiprop_tpu_torch.models import kernels_nr_f32
 
-    # the one place the march is resolved: every entry point builds tables
-    _resolve_march(cfg, params.device)  # raises for unported marches
+    march = _resolve_march(cfg, params.device)  # raises for unported ones
+    if march != "trisolve_pallas":
+        raise ValueError(
+            f"build_tables builds the fused trisolve march's tables; "
+            f"march={march!r} builds its own inside evolve_core")
     if cfg.phiphi or pp_tables is not None:
         raise NotImplementedError(
             "phi-phi channel tables are slice D (ROADMAP queue 1 item 11)")
@@ -236,13 +434,161 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
     return tblG, tblAt, (a32, pref)
 
 
-def evolve(params: PhysicsParams, cfg: Config, pp_tables=None) -> EvolveResult:
-    """Evolve the flux of one parameter point (scalar ``params``). The
-    fused march is batched; a single point rides as a batch of one."""
-    from nusiprop_tpu_torch.ops import march_tri
+def evolve_core(params: PhysicsParams, cfg: Config, march: str,
+                pp_tables=None) -> EvolveResult:
+    """Batched s-channel evolve (params fields carry one leading batch
+    axis) through ``march`` in ("rank1", "rank1_f32", "loop"): the JAX
+    ``evolve_core`` with its vmap written out as that axis.
 
-    res = march_tri.evolve_trisolve_fused(
-        params.map(lambda x: x[None]), cfg, pp_tables=pp_tables)
+    Tables: ``rank1_f32`` with table_dtype "auto"/"f32" takes the
+    native-f32 s-channel tables (kernels_f32); otherwise the f64 closed
+    forms (kernels), with the rank-one alpha factor rho (scaled by 2^100)
+    for rank1/rank1_f32 and the full alpha table for ``loop``.
+    """
+    if pp_tables is not None:
+        raise NotImplementedError(
+            "phi-phi channel tables are slice D (ROADMAP queue 1 item 11)")
+    dev = params.device
+    gr = grids.build(cfg, dev)
+    NE = cfg.N_bins_E
+    Nz = gr.N_steps_z
+    Wsq_np = mixing.pmns_sq(cfg.normal_ordering)
+    Wsq = torch.as_tensor(Wsq_np, device=dev)
+    Wf = Wsq[cfg.flav]
+    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+    norm_total = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
+    dE_ext = gr.Emax_ext - gr.Emin_ext
+    tables = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+
+    tblA = rho_ext = None
+    tbl_prefs = (1.0, 1.0, _INV_RSCALE)
+    if march == "rank1_f32" and cfg.table_dtype in ("auto", "f32"):
+        tblG, tblAt, rho_ext, tbl_prefs = kernels_f32.s_channel_tables_f32(
+            *tables, majorana=cfg.majorana)
+    else:
+        kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
+                  phiphi=cfg.phiphi)
+        tblG = kernels.gamma_table(*tables, **kw)
+        tblAt = kernels.alphatilde_table(*tables, **kw)
+        if march == "loop":
+            tblA = kernels.alpha_table(*tables, **kw)
+        else:
+            rho_ext = kernels.alpha_s_rho(*tables, majorana=cfg.majorana,
+                                          scaled=True)
+    inv_dE = 1.0 / (gr.Emax - gr.Emin)
+
+    if march == "rank1_f32":
+        xs, scale = _rank1_f32_rows(cfg, gr, params, norm_total, tblG, tblAt,
+                                    rho_ext, dE_ext, prefs=tbl_prefs)
+        phi = _rank1_f32_scan(xs, tuple(float(w) for w in Wsq_np[cfg.flav]),
+                              NE)
+        # back to counts in f64 (the last node's preconditioner scale)
+        flux = phi.to(torch.float64) * scale[..., None, :]
+    else:
+        steps_z = torch.flip(gr.z[1:], dims=(0,))  # z[Nz-1], ..., z[1]
+        lum_all = _source_lum(cfg, gr, steps_z, params.si, norm_total)
+        flux = torch.zeros(params.mphi.shape + (3, NE), dtype=torch.float64,
+                           device=dev)
+        for t, i in enumerate(range(Nz - 1, 0, -1)):
+            lum = lum_all[..., t, :]
+            node = _node_common(gr, i, NE, tblG, tblAt, Wf, inv_dE)
+            if march == "rank1":
+                flux = _z_step_rank1(flux, i, lum, node, rho_ext, dE_ext,
+                                     Wf, inv_dE, NE)
+            else:
+                flux = _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE)
+
+    flux = flux * inv_dE                    # counts -> differential flux
+    # mass -> flavor basis, written out so every point sums in one order
+    flux_fla = torch.stack([
+        Wsq[a, 0] * flux[..., 0, :] + Wsq[a, 1] * flux[..., 1, :]
+        + Wsq[a, 2] * flux[..., 2, :] for a in range(3)], dim=-2)
+    health = _table_health([tblG, tblAt, tblA, rho_ext],
+                           _march_tau(gr, tblG, tbl_prefs[0]))
+    bc = lambda a: a.expand(params.mphi.shape + a.shape)
+    return EvolveResult(
+        flux=flux, flux_fla=flux_fla, E_nu=bc(gr.E_nu), Emin=bc(gr.Emin),
+        Emax=bc(gr.Emax), z=bc(gr.z), mn=mn, health=health)
+
+
+def _node_common(gr, i, NE, tblG, tblAt, Wf, inv_dE):
+    """Per-z-node quantities shared by the f64 marches: (ndfac, pref,
+    Zdr (..., 3, NE), coup (..., NE)). The window of the extended tables
+    active at node i starts at extended entry i-1 (nuSIprop.hpp:268-272);
+    Zdr is nuSIprop.hpp:294."""
+    zim = gr.z[i - 1]
+    ndfac = sources.get_nd(zim) / (1.0 + zim) ** 2
+    pref = (1.0 + zim) * gr.dlogz / sources.get_H(zim)
+    G_i = tblG[..., i - 1:i - 1 + NE] * ndfac
+    At_i = tblAt[..., i - 1:i - 1 + NE] * ndfac
+    Wf_c, Wf2_c = Wf[:, None], (Wf * Wf)[:, None]
+    Zdr = 1.0 + pref * (
+        G_i[..., None, :] * Wf_c - At_i[..., None, :] * Wf2_c) * inv_dE
+    coup = At_i * inv_dE  # same-bin eigenstate coupling
+    return ndfac, pref, Zdr, coup
+
+
+def _z_step_rank1(flux, i, lum, node, rho_ext, dE_ext, Wf, inv_dE, NE):
+    """s-channel-only sweep in log depth: alpha[j, m] = dE_ext[j'] *
+    rho_ext[m'] exactly, so the regeneration feed is reg_j = d_j * cum_j
+    with cum obeying a scalar affine recurrence over the already-updated
+    higher bins (see the JAX ``z_step_rank1``). RANGE SAFETY: rho_ext is
+    stored scaled by 2^100 and every use pairs it with the target width
+    d scaled by 2^-100, so the f64 results are those of the raw tables."""
+    ndfac, pref, Zdr, coup = node
+    d_w = dE_ext[i - 1:i - 1 + NE] * _INV_RSCALE
+    rho_w = rho_ext[..., i - 1:i - 1 + NE] * ndfac
+    U, V = _node_affine(pref, Zdr, coup, lum, flux, Wf)
+    c_w = rho_w * inv_dE  # accumulation weight of each source bin
+    # d_w multiplies the tiny c_w/cum factors, never U (pref ~ 1e31)
+    a = 1.0 + (c_w * d_w) * _sum3(U * Wf)
+    b = c_w * _sum3(V * Wf)
+    cum = _regeneration_state(a, b)
+    return (V + (cum * d_w)[..., None] * U).transpose(-1, -2)
+
+
+def _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE):
+    """Reference-shaped descending-bin sweep (nuSIprop.hpp:266-315), the
+    cross-validation oracle: per bin the regeneration feed from the
+    higher bins updated so far, then the 3x3 adjugate solve."""
+    ndfac, pref, Zdr, coup = node
+    A_i = tblA[..., i - 1:i - 1 + NE, i - 1:i - 1 + NE] * ndfac
+    eye3 = torch.eye(3, dtype=torch.float64, device=flux.device)
+    WfWf = Wf[:, None] * Wf[None, :]
+    offd = 1.0 - eye3
+    flx = flux.clone()
+    for jm in range(NE - 1, -1, -1):
+        arow = A_i[..., jm, :]  # strictly-triangular zeros mask m <= jm
+        s_l = ((flx * inv_dE) @ arow[..., :, None])[..., 0]  # (..., 3)
+        reg = _sum3(Wf * s_l)
+        src = pref * (lum[..., jm, None] + reg[..., None] * Wf)
+        zdr = Zdr[..., :, jm]
+        rhs = (flx[..., :, jm] + src) / zdr
+        M = eye3 + offd * (coup[..., jm, None, None] * WfWf
+                           / zdr[..., :, None])
+        flx[..., :, jm] = _solve3(M, rhs)
+    return flx
+
+
+def evolve_batched(params: PhysicsParams, cfg: Config,
+                   pp_tables=None) -> EvolveResult:
+    """Evolve a batch of points (fields with one leading batch axis)
+    through the march ``_resolve_march`` picks: the fused kernel march
+    (``ops/march_tri``) or the s-channel ``evolve_core``."""
+    march = _resolve_march(cfg, params.device)
+    if march == "trisolve_pallas":
+        from nusiprop_tpu_torch.ops import march_tri
+
+        return march_tri.evolve_trisolve_fused(params, cfg,
+                                               pp_tables=pp_tables)
+    return evolve_core(params, cfg, march, pp_tables=pp_tables)
+
+
+def evolve(params: PhysicsParams, cfg: Config, pp_tables=None) -> EvolveResult:
+    """Evolve the flux of one parameter point (scalar ``params``); it
+    rides as a batch of one."""
+    res = evolve_batched(params.map(lambda x: x[None]), cfg,
+                         pp_tables=pp_tables)
     return EvolveResult(*(x[0] for x in res))
 
 

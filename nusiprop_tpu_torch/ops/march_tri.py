@@ -5,9 +5,8 @@ Hopper (port of ``nusiprop_tpu.ops.march_tri``).
 TPU kernel ``nusiprop_tpu/ops/march_tri.py::_make_kernel``) on CUDA
 tensors, and runs ``march_tri_plain`` — the PyTorch twin with the same
 substitution order as the JAX ``march_tri_jax`` — on CPU tensors only.
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``nusiprop_tpu_torch/_build/`` (rebuilt when the source's hash changes)
-and bound through ``ctypes``.
+The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/cuda_build``) and bound through ``ctypes``.
 
 Per z-node t (window offset Nz-2-t), for all NE bins: the
 Sherman-Morrison reduction ``_sm_node`` gives U, V, qv, pu; the
@@ -17,79 +16,24 @@ the carry phi of the next node (nuSIprop.hpp:257-315).
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
 
 from nusiprop_tpu_torch.config import Config, PhysicsParams
 from nusiprop_tpu_torch.models import grids, masses, mixing, sources, transport
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "march_tri.cu")
-_BUILD = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-
-_lib = None
-BUILD_LOG = ""
+from nusiprop_tpu_torch.ops import cuda_build
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the march kernel is built with "
-                           "the CUDA toolkit at first use")
-    return path
-
-
-def build() -> str:
-    """Compile the kernel library if its source changed; returns its path.
-    The library name carries the hash of the source and flags."""
-    global BUILD_LOG
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(_BUILD, f"libmarch_tri_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True, check=False)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.march_tri_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.march_tri_error_string.argtypes = [ctypes.c_int]
-        lib.march_tri_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _declare(lib):
+    fn = lib.march_tri_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.march_tri_error_string.argtypes = [ctypes.c_int]
+    lib.march_tri_error_string.restype = ctypes.c_char_p
 
 
 def _f32(x) -> float:
@@ -169,7 +113,7 @@ def march_tri(A32, xs, W_static, NE: int, Nz: int):
     for x in (A32, *xs):
         if not x.is_contiguous():
             raise ValueError("march_tri needs contiguous inputs on CUDA")
-    lib = _load()
+    lib = cuda_build.load("march_tri", _declare)
     out = torch.empty(B, 3, NE, dtype=torch.float32, device=A32.device)
     W = [_f32(w) for w in W_static]
     with torch.cuda.device(A32.device):

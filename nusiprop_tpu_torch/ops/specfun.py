@@ -1,6 +1,7 @@
-"""Real di- and trilogarithm in float64 (port of the ``li2``/``li3``
-part of ``nusiprop_tpu.ops.specfun``; the DSNB source antiderivative
-needs them, sources.lum_int_fd).
+"""Special functions in float64 (port of part of
+``nusiprop_tpu.ops.specfun``): the real di- and trilogarithm, which the
+DSNB source antiderivative needs (sources.lum_int_fd), and ``log1p_safe``
+and ``atandiff``, which the s-channel closed forms call (models/kernels).
 
 Branch-free region reduction: every branch is evaluated on a clamped,
 safe argument and ``torch.where`` selects, exactly as the JAX code does.
@@ -138,3 +139,26 @@ def li3(x):
     )
     lnx = torch.log(torch.clamp(-x, min=1.0))
     return torch.where(inv, core - PI2_6 * lnx - lnx * lnx * lnx / 6.0, core)
+
+
+def log1p_safe(x):
+    """log(1+x) robust to huge ``x`` (see the JAX docstring): log(x)
+    above 1e15, where it equals log1p(x) to < 1e-15, with each discarded
+    branch's argument clamped so it stays finite; +inf gives +inf."""
+    big = x > 1e15
+    finite_big = torch.clamp(x, 1.0, 1e37)
+    out = torch.where(big, torch.log(finite_big),
+                      torch.log1p(torch.clamp(x, max=1e15)))
+    huge = torch.isfinite(x) & (x > 1e37)
+    out = torch.where(huge, torch.log(torch.where(huge, x, 1.0)), out)
+    return torch.where(torch.isinf(x) & (x > 0), torch.inf, out)
+
+
+def atandiff(x, y):
+    """atan(x) - atan(y); Taylor in 1/x when both |x|,|y| >= 1e2, same sign."""
+    exact = (torch.abs(x) < 1e2) | (torch.abs(y) < 1e2) | (x * y < 0)
+    sx = torch.where(x == 0.0, 1.0, x)
+    sy = torch.where(y == 0.0, 1.0, y)
+    ix, iy = 1.0 / sx, 1.0 / sy
+    taylor = (-ix + ix * ix * ix / 3.0) - (-iy + iy * iy * iy / 3.0)
+    return torch.where(exact, torch.atan(x) - torch.atan(y), taylor)

@@ -7,24 +7,25 @@ tensor work plus one kernel launch per chunk.
 
 import torch
 
-from nusiprop_tpu_torch.config import PhysicsParams, _FIELDS
+from nusiprop_tpu_torch.config import PhysicsParams, _FIELDS, resolve_device
 from nusiprop_tpu_torch.models import transport
 
 
-def stack_params(points, device=None) -> PhysicsParams:
-    """Batched PhysicsParams from an iterable of (mphi, g, mntot, si,
-    norm) tuples or scalar PhysicsParams."""
+def stack_params(points, device="cuda") -> PhysicsParams:
+    """Batched PhysicsParams on ``device`` from an iterable of (mphi, g,
+    mntot, si, norm) tuples or scalar PhysicsParams."""
+    device = resolve_device(device)
     rows = [p if isinstance(p, PhysicsParams)
             else PhysicsParams.create(*p, device=device) for p in points]
     return PhysicsParams(*(torch.stack([getattr(r, k) for r in rows])
-                           .to(device or rows[0].device) for k in _FIELDS))
+                           .to(device) for k in _FIELDS))
 
 
 def param_grid(mphi_vals, g_vals, mntot, si, norm=1.0,
-               device=None) -> PhysicsParams:
+               device="cuda") -> PhysicsParams:
     """Dense (mphi x g) grid flattened to a batch (mphi-major, as the
     reference's exclusion-contour scan and the JAX ``param_grid``)."""
-    f64 = dict(dtype=torch.float64, device=device)
+    f64 = dict(dtype=torch.float64, device=resolve_device(device))
     mm, gg = torch.meshgrid(torch.as_tensor(mphi_vals, **f64),
                             torch.as_tensor(g_vals, **f64), indexing="ij")
     ones = torch.ones(mm.numel(), **f64)
@@ -37,17 +38,16 @@ def grid_scan(params: PhysicsParams, cfg, chunk_size: int | None = None,
     """Evolve a batch of parameter points (fields with one leading batch
     axis); returns an EvolveResult whose fields carry that axis.
 
-    ``chunk_size=k`` builds the tables and marches k points at a time,
-    which bounds the peak memory of the eager table build at large batch
-    (the result equals the unchunked one). ``transport.build_tables``
-    raises for configs this port does not run yet."""
-    from nusiprop_tpu_torch.ops import march_tri
-
+    Every march runs through ``transport.evolve_batched``: the fused
+    kernel march for non-resonant configs, the batched ``evolve_core``
+    (rank1, rank1_f32, loop) for s-channel configs; it raises for configs
+    this port does not run yet. ``chunk_size=k`` builds the tables and
+    marches k points at a time, which bounds the peak memory of the eager
+    table build at large batch (the result equals the unchunked one)."""
     batch = params.mphi.shape[0]
     if not chunk_size or chunk_size >= batch:
-        return march_tri.evolve_trisolve_fused(params, cfg,
-                                               pp_tables=pp_tables)
-    parts = [march_tri.evolve_trisolve_fused(
+        return transport.evolve_batched(params, cfg, pp_tables=pp_tables)
+    parts = [transport.evolve_batched(
         params.map(lambda x: x[s:s + chunk_size]), cfg, pp_tables=pp_tables)
         for s in range(0, batch, chunk_size)]
     return transport.EvolveResult(*(torch.cat(fs) for fs in zip(*parts)))

@@ -77,15 +77,15 @@ def test_config_accepts_and_rejects_like_jax(kw):
 
 
 @pytest.mark.parametrize("nb,lo,hi", [(48, 4.0, 9.0), (100, 4.0, 9.0),
-                                      (150, 9.0, 14.0)])
+                                      (150, 9.0, 14.0), (500, 4.0, 9.0)])
 def test_grids_match(nb, lo, hi):
+    """Bitwise: both packages take the edges from the C library's pow."""
     kw = dict(N_bins_E=nb, lEmin=lo, lEmax=hi)
     j = jgrids.build(JConfig(**kw))
     t = grids.build(TConfig(**kw))
     for name in ("Emin", "E_nu", "Emax", "z", "Emin_ext", "Emax_ext"):
-        np.testing.assert_allclose(getattr(t, name).numpy(),
-                                   np.asarray(getattr(j, name)),
-                                   rtol=RTOL, atol=1e-300)
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name)))
     assert t.dlogz == j.dlogz and t.zmax_eff == j.zmax_eff
     assert t.N_steps_z == j.N_steps_z
 
@@ -160,18 +160,45 @@ def test_free_streaming_integrals_match():
 
 
 def test_physics_params_batch_and_device():
-    p = PhysicsParams.create([1e5, 1e6], 1e-3, 0.1, 2.0, 6.0)
+    p = PhysicsParams.create([1e5, 1e6], 1e-3, 0.1, 2.0, 6.0, device="cpu")
     assert p.batch_shape == (2,) and p.g.shape == (2,)
     assert p.mphi.dtype == torch.float64
     q = p.to("cpu").map(lambda x: x[1])
     assert float(q.mphi) == 1e6 and q.batch_shape == ()
     with pytest.raises(ValueError):
-        PhysicsParams.create(np.ones((2, 2)), 1e-3, 0.1, 2.0)
+        PhysicsParams.create(np.ones((2, 2)), 1e-3, 0.1, 2.0, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["Evolver", "param_grid", "stack_params",
+                                   "PhysicsParams.create"])
+def test_entry_points_default_to_cuda(entry, monkeypatch):
+    """The entry points put their tensors on the card by default; with no
+    card they raise (naming device="cpu") instead of landing on the CPU,
+    and run there when asked."""
+    import nusiprop_tpu_torch as nt
+
+    calls = {
+        "Evolver": lambda **kw: nt.Evolver(mphi=5e6, g=1e-6, mntot=0.06,
+                                           si=2.0, non_resonant=False, **kw),
+        "param_grid": lambda **kw: nt.param_grid([1e6], [1e-3], 0.06, 2.0,
+                                                 **kw),
+        "stack_params": lambda **kw: nt.stack_params(
+            [(1e6, 1e-3, 0.06, 2.0, 6.0)], **kw),
+        "PhysicsParams.create": lambda **kw: PhysicsParams.create(
+            1e6, 1e-3, 0.06, 2.0, **kw),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    dev = out.device if entry == "Evolver" else out.mphi.device
+    assert dev.type == "cpu"
 
 
 def test_port_imports_no_jax():
     code = ("import sys, nusiprop_tpu_torch, nusiprop_tpu_torch.interop, "
             "nusiprop_tpu_torch.ops.march_tri, "
+            "nusiprop_tpu_torch.ops.march_ds, nusiprop_tpu_torch.utils.io, "
             "nusiprop_tpu_torch.models.kernels_nr_f32; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'nusiprop_tpu.'))"

@@ -1,14 +1,19 @@
-"""The hand-written CUDA march against its plain PyTorch twin on the card.
+"""The hand-written CUDA marches against their plain PyTorch twins on the
+card: K1 (ops/march_tri, csrc/march_tri.cu) and K2 (ops/march_ds,
+csrc/march_ds.cu).
 
 This module imports no JAX, so it runs where only PyTorch and the CUDA
 toolkit are installed (tests/conftest.py imports JAX; skip it there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
-Every test needs a CUDA device and skips without one. Inputs are the
-port's own tables and rows at 0.05 decades/bin (lE in [4, 9], zmax 5,
-dsnb, Majorana, phi-phi off). Gate: gated relative < 5e-5 (floor 1e-10);
-the only difference is the float32 summation order of the row dot.
+Every test needs a CUDA device and skips without one. K1's inputs are
+the port's own tables and rows at 0.05 decades/bin (lE in [4, 9], zmax 5,
+dsnb, Majorana, phi-phi off); gate: gated relative < 5e-5 (floor 1e-10),
+the only difference being the float32 summation order of the row dot.
+K2's inputs are the port's float64 rows of the s-channel config on the
+same energy window; gate: gated relative < 1e-10 (mask 1e-25 of the max),
+though kernel and twin compose in the same order and agree bitwise.
 """
 
 import numpy as np
@@ -18,7 +23,7 @@ import torch
 import nusiprop_tpu_torch as nt
 from nusiprop_tpu_torch.config import Config
 from nusiprop_tpu_torch.models import grids, mixing, sources, transport
-from nusiprop_tpu_torch.ops import march_tri
+from nusiprop_tpu_torch.ops import march_ds, march_tri
 
 torch.set_num_threads(2)
 
@@ -96,3 +101,26 @@ def test_kernel_refuses_strided_rows_on_card():
     strided = xs[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         march_tri.march_tri(A32, (strided,) + tuple(xs[1:]), W, 100, Nz)
+
+
+@pytest.mark.parametrize("n_bins,batch", [(64, 3), (500, 4), (2048, 2)],
+                         ids=["NE64", "NE500", "NE2048"])
+def test_march_ds_kernel_matches_plain_on_card(n_bins, batch):
+    """One thread per bin (NE 64, 500) and four bins per thread (NE 2048:
+    no bin ceiling below the shared-memory limit)."""
+    dev = _card()
+    cfg = Config(N_bins_E=n_bins, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=False, phiphi=False)
+    params = nt.param_grid(np.geomspace(1e5, 1e8, batch), [1e-2],
+                           mntot=MNTOT, si=2.0, norm=6.0, device=dev)
+    rows, meta = march_ds.prepare_rank1_inputs(params, cfg)
+    before = march_ds.march_ds_batched.launches
+    k = march_ds.march_ds_batched(rows, meta)
+    assert march_ds.march_ds_batched.launches == before + 1
+    assert k.shape == (batch, 3, n_bins) and k.is_cuda
+    p = march_ds.march_ds_plain(rows, meta["W"], meta["n_steps"])
+    assert bool(torch.isfinite(k).all())
+    a, b = p.double(), k.double()
+    gate = a.abs() > a.abs().amax(dim=(-1, -2), keepdim=True) * 1e-25
+    rel = float(((b - a).abs()[gate] / a.abs()[gate]).max())
+    assert rel < 1e-10, rel

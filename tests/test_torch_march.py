@@ -66,7 +66,7 @@ def state():
     jrows, jscale = jax.jit(jax.vmap(rows_one))(jp, jtables[0], jtables[1],
                                                 jtables[2][1])
     tcfg = interop.config_from_jax(jcfg)
-    tp = interop.params_from_jax(jp)
+    tp = interop.params_from_jax(jp, device="cpu")
     ttables = transport.build_tables(tp, tcfg)
     tgr = grids.build(tcfg)
     tnt = tp.norm / sources.flux_fs_e0(tp.si, tgr.zmax_eff)
@@ -94,7 +94,7 @@ def test_rows_match_jax(state):
 def test_march_alone_on_identical_state(state):
     """JAX tables and JAX rows through both twins: only the march
     differs."""
-    A32 = interop.tables_from_jax(state["jtables"])[2][0]
+    A32 = interop.tables_from_jax(state["jtables"], device="cpu")[2][0]
     xs = tuple(torch.as_tensor(r) for r in state["jrows"])
     NE, Nz = CFG["N_bins_E"], state["Nz"]
     j = np.asarray(jmt.march_tri_jax(

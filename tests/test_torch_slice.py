@@ -43,7 +43,8 @@ def _gated_rel(a, b, floor=1e-10):
 def runs():
     jp = nu.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0, norm=6.0)
     jres = jmt.evolve_trisolve_fused(jp, JConfig(**CFG), use_pallas=False)
-    tp = nt.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0, norm=6.0)
+    tp = nt.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0, norm=6.0,
+                       device="cpu")
     tres = nt.grid_scan(tp, Config(**CFG))
     return jres, tp, tres
 
@@ -114,7 +115,7 @@ def test_grid_scan_chunked_equals_unchunked(runs, chunk):
     (dict(), "cpu"),
     (dict(N_bins_E=48, lEmin=4.0, lEmax=9.0), "cuda"),
     (dict(table_dtype="f64"), "cuda"),
-    (dict(non_resonant=False), "cuda"),
+    (dict(non_resonant=False, march="trisolve"), "cuda"),
     (dict(march="trisolve"), "cuda"),
     (dict(march="trisolve_f32"), "cuda"),
 ], ids=["cpu", "coarse-bins", "f64-tables", "s-channel", "trisolve",
@@ -138,7 +139,7 @@ def test_entry_points_refuse_auto_march_on_cpu(entry):
             nt.Evolver(mphi=1e6, g=1e-3, mntot=MNTOT, si=2.0, device="cpu",
                        **kw).evolve()
         else:
-            p = nt.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0)
+            p = nt.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0, device="cpu")
             nt.grid_scan(p, Config(**kw),
                          chunk_size=1 if entry == "grid_scan_chunked" else None)
     assert tmt.march_tri.launches == before
@@ -167,8 +168,8 @@ def test_unported_options_raise():
         assert (ev.get_flux() == 0).all()
     dirac = Config(**dict(CFG, majorana=False))
     with pytest.raises(NotImplementedError, match="slice C"):
-        transport.build_tables(nt.PhysicsParams.create(1e6, 1e-3, 0.1, 2.0),
-                               dirac)
+        transport.build_tables(
+            nt.PhysicsParams.create(1e6, 1e-3, 0.1, 2.0, device="cpu"), dirac)
 
 
 def test_registered_source_takes_the_per_node_path():
@@ -178,7 +179,8 @@ def test_registered_source_takes_the_per_node_path():
     from nusiprop_tpu_torch.models import sources
 
     sources.register_source("powerlaw_copy_torch_test", sources.lum_powerlaw)
-    p = nt.param_grid(MPHI[:2], [1e-3], mntot=MNTOT, si=2.5, norm=1.0)
+    p = nt.param_grid(MPHI[:2], [1e-3], mntot=MNTOT, si=2.5, norm=1.0,
+                      device="cpu")
     a = nt.grid_scan(p, Config(**dict(CFG, source="powerlaw")))
     b = nt.grid_scan(p, Config(**dict(CFG, source="powerlaw_copy_torch_test")))
     rel = _gated_rel(a.flux_fla.numpy(), b.flux_fla.numpy())
@@ -186,19 +188,46 @@ def test_registered_source_takes_the_per_node_path():
 
 
 def test_stack_params_matches_param_grid():
-    grid = nt.param_grid(MPHI, [1e-3, 2e-3], mntot=MNTOT, si=2.0, norm=6.0)
+    grid = nt.param_grid(MPHI, [1e-3, 2e-3], mntot=MNTOT, si=2.0, norm=6.0,
+                         device="cpu")
     pts = [(m, g, MNTOT, 2.0, 6.0) for m in MPHI for g in (1e-3, 2e-3)]
-    st = nt.stack_params(pts)
+    st = nt.stack_params(pts, device="cpu")
     for name in ("mphi", "g", "mntot", "si", "norm"):
         assert torch.equal(getattr(st, name), getattr(grid, name))
-    assert torch.equal(nt.stack_params([st.map(lambda x: x[0])]).mphi,
-                       grid.mphi[:1])
+    assert torch.equal(
+        nt.stack_params([st.map(lambda x: x[0])], device="cpu").mphi,
+        grid.mphi[:1])
+
+
+def test_reference_gate_data_nonresonant_cpp():
+    """tests/data/data_nonresonant_cpp.txt (the test.cpp point: mphi 6e5,
+    g 0.01, mntot 0.1, si 2.5, norm 6, 100 bins over lE in [9, 14],
+    powerlaw source, non-resonant, phi-phi off; tests/test_golden.py)
+    through the port's fused march with its native-f32 tables, on CPU:
+    the physics gate 1e-3 per bin. table_dtype stays "auto": Config, as
+    the JAX one, refuses "f32" beside "trisolve_pallas", whose tables are
+    float32 already. Measured when this gate was set:
+    6.03e-7 (the JAX f32-table trisolve is pinned at 1e-5 there)."""
+    import pathlib
+
+    ref = np.loadtxt(pathlib.Path(__file__).parent / "data"
+                     / "data_nonresonant_cpp.txt")
+    cfg = Config(N_bins_E=100, lEmin=9.0, lEmax=14.0, zmax=5.0, flav=2,
+                 majorana=True, normal_ordering=True, non_resonant=True,
+                 phiphi=False, source="powerlaw", march="trisolve_pallas")
+    res = transport.evolve(
+        nt.PhysicsParams.create(6e5, 0.01, 0.1, 2.5, 6.0, device="cpu"), cfg)
+    np.testing.assert_allclose(res.E_nu.numpy(), ref[:, 0], rtol=1e-14)
+    rel = np.abs(res.flux_fla.numpy() - ref[:, 1:].T) / np.abs(ref[:, 1:].T)
+    assert rel.max() < 1e-3
+    # actual quality; loosen only with evidence
+    assert rel.max() < 2e-6, rel.max()
 
 
 def test_interop_round_trip():
     jcfg = JConfig(**CFG)
     assert interop.config_from_jax(jcfg) == Config(**CFG)
     jp = nu.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0, norm=6.0)
-    tp = interop.params_from_jax(jp)
+    tp = interop.params_from_jax(jp, device="cpu")
     np.testing.assert_array_equal(tp.mphi.numpy(), np.asarray(jp.mphi))
     assert tp.norm.dtype == torch.float64
