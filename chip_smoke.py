@@ -41,7 +41,11 @@ phase printing one JSON line:
               times as above, the kernel time, the bound and peak memory
   march_ds_no_ceiling  K2 against its plain twin at 2048 bins, batch 2
 
-then the kernels line, the card line, and as the last line
+then the kernels line (K1's entry adds its share of the bound, its times
+at batch 1 and batch 8, and its launch design: threads, tile width,
+dynamic shared memory at 500 and 1024 bins, and ptxas's registers and
+spills from the build phase),
+the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises: the script exits
 non-zero and prints no last line. It needs a CUDA device.
 
@@ -57,6 +61,7 @@ outside the tensor cores.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -230,6 +235,10 @@ def main():
          **public(cmp1024))
 
     cmps = (cmp1, cmp128, cmp500, cmp1024)
+    b1 = k1_bound(B, NE, Nz)
+    design = dict(mt.kernel_config(NE),
+                  smem_bytes_ne1024=mt.kernel_config(1024)["smem_bytes"],
+                  **ptxas_facts(cuda_build.BUILD_LOG.get("march_tri", "")))
     k1 = dict(
         name="march_tri", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_tri.cu",
@@ -240,8 +249,10 @@ def main():
         max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         max_flux_rel_vs_plain=max(cmp1["flux_rel_vs_plain"],
                                   cmp128["flux_rel_vs_plain"]),
-        ms=cmp128["kernel_ms"], plain_ms=cmp128["plain_ms"],
-        **k1_bound(B, NE, Nz), library_ms=None,
+        ms=cmp128["kernel_ms"], plain_ms=cmp128["plain_ms"], **b1,
+        share_of_bound=b1["bound_ms"] / cmp128["kernel_ms"],
+        ms_batch1=cmp1["kernel_ms"], ms_batch8=cmp500["kernel_ms"],
+        library_ms=None, design=design,
         shape="batch 128, NE 500, Nz 79 (the grid_scan path's own); "
               "also compared at batch 1, batch 8 and NE 1024 batch 2")
 
@@ -344,7 +355,7 @@ def schannel_phases(dev, card):
         max_rel_vs_plain=max(cmp["max_rel_vs_plain"],
                              cmp2["max_rel_vs_plain"]),
         ms=cmp["kernel_ms"], plain_ms=cmp["plain_ms"], **bound,
-        library_ms=None,
+        share_of_bound=bound["bound_ms"] / cmp["kernel_ms"], library_ms=None,
         shape=f"batch {B}, NE 500, Nz {Nz} (the "
               "evolve_pallas path's own); also compared at NE 2048 batch 2")
 
@@ -370,6 +381,18 @@ def k2_bound(B, n_steps, NE):
     nbytes = 8 * (5 * B * n_steps * NE + n_steps * NE + 3 * B * NE)
     flops = B * n_steps * NE * (K2_NODE_FLOPS + K2_LEVEL_FLOPS * levels)
     return bound(nbytes, flops, F64_FLOPS)
+
+
+def ptxas_facts(log):
+    """Registers and spill bytes per thread of the one kernel entry in a
+    source's ``nvcc -Xptxas -v`` output; None where this process found
+    the library already built."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        log)
+    return dict(ptxas_registers=int(regs[-1]) if regs else None,
+                ptxas_spill_stores=int(spills[-1][0]) if spills else None,
+                ptxas_spill_loads=int(spills[-1][1]) if spills else None)
 
 
 def bound(nbytes, flops, peak):
@@ -487,7 +510,7 @@ def compare(mt, m):
     stop.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
-    kernel_ms = time_kernel(mt, A32, xs, W, NE, Nz, reps=5)
+    kernel_ms = time_kernel(mt, A32, xs, W, NE, Nz, reps=20)
     check(bool(torch.isfinite(k).all()), "kernel output finite")
     rel = gated_rel(p.double(), k.double())
     check(rel < GATE, f"kernel vs plain gated rel {rel:.3e} < {GATE}")

@@ -5,7 +5,8 @@ Hopper (port of ``nusiprop_tpu.ops.march_tri``).
 TPU kernel ``nusiprop_tpu/ops/march_tri.py::_make_kernel``) on CUDA
 tensors, and runs ``march_tri_plain`` — the PyTorch twin with the same
 substitution order as the JAX ``march_tri_jax`` — on CPU tensors only.
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use
+The kernel, a tiled back-substitution (tiles of 32 bins, one block
+barrier each), is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/cuda_build``) and bound through ``ctypes``.
 
 Per z-node t (window offset Nz-2-t), for all NE bins: the
@@ -32,6 +33,8 @@ def _declare(lib):
                    + [ctypes.c_float] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.march_tri_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.march_tri_config.restype = None
     lib.march_tri_error_string.argtypes = [ctypes.c_int]
     lib.march_tri_error_string.restype = ctypes.c_char_p
 
@@ -129,6 +132,16 @@ def march_tri(A32, xs, W_static, NE: int, Nz: int):
 
 
 march_tri.launches = 0
+
+
+def kernel_config(NE: int) -> dict:
+    """The CUDA kernel's launch at NE bins, from its source's constants:
+    threads per block, tile width (bins) and dynamic shared memory
+    (bytes). Builds the kernel if needed."""
+    lib = cuda_build.load("march_tri", _declare)
+    vals = (ctypes.c_int * 3)()
+    lib.march_tri_config(NE, vals)
+    return dict(zip(("threads", "tile", "smem_bytes"), vals))
 
 
 def evolve_trisolve_fused(params: PhysicsParams, cfg: Config,

@@ -46,11 +46,13 @@ def _gated_rel(a, b, floor=1e-10):
     return float(((b - a).abs()[gate] / a.abs()[gate]).max())
 
 
-def _inputs(n_bins, dev):
-    """The port's tables and rows for MPHI at g = 1e-2 on ``dev``."""
+def _inputs(n_bins, dev, mphi=MPHI):
+    """The port's tables and rows for ``mphi`` at g = 1e-2 on ``dev``
+    (the fused march named: "auto" refuses bins coarser than 0.05
+    decades, as at 20 bins)."""
     cfg = Config(N_bins_E=n_bins, lEmin=4.0, lEmax=9.0, zmax=5.0,
-                 non_resonant=True, phiphi=False)
-    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                 non_resonant=True, phiphi=False, march="trisolve_pallas")
+    params = nt.param_grid(mphi, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
                            device=dev)
     gr = grids.build(cfg, dev)
     tblG, tblAt, (A32, pref) = transport.build_tables(params, cfg)
@@ -61,16 +63,21 @@ def _inputs(n_bins, dev):
     return cfg, params, A32.contiguous(), rows[:7], W, gr.N_steps_z
 
 
-@pytest.mark.parametrize("n_bins", [100, 300], ids=["NE100", "NE300"])
-def test_kernel_matches_plain_on_card(n_bins):
-    """Fewer bins than threads (100) and more (300, not a multiple of the
-    block size)."""
+@pytest.mark.parametrize(
+    "n_bins,batch", [(100, 4), (300, 4), (20, 4), (256, 4), (500, 1),
+                     (1024, 2)],
+    ids=["NE100", "NE300", "NE20", "NE256", "NE500-batch1", "NE1024"])
+def test_kernel_matches_plain_on_card(n_bins, batch):
+    """The tiled kernel (tiles of 32 bins) at its edges: ragged lowest
+    tiles of 4 and 12 bins (100, 300), one ragged tile only (20), whole
+    tiles only (256), one point on the card (batch 1, the Evolver's
+    shape), and 32 tiles at 1024 bins (NEXT 1183)."""
     dev = _card()
-    _, _, A32, xs, W, Nz = _inputs(n_bins, dev)
+    _, _, A32, xs, W, Nz = _inputs(n_bins, dev, MPHI[:batch])
     before = march_tri.march_tri.launches
     k = march_tri.march_tri(A32, xs, W, n_bins, Nz)
     assert march_tri.march_tri.launches == before + 1
-    assert k.shape == (len(MPHI), 3, n_bins) and k.is_cuda
+    assert k.shape == (batch, 3, n_bins) and k.is_cuda
     p = march_tri.march_tri_plain(A32, xs, W, n_bins, Nz)
     assert bool(torch.isfinite(k).all())
     rel = _gated_rel(p, k)

@@ -169,6 +169,85 @@ def test_f32_rows_survive_narrow_exponent_window(state, b):
     assert rel < 1e-3, rel
 
 
+TILE = 32  # csrc/march_tri.cu's tile width (one warp)
+
+
+def _march_tri_tiled(A32, xs, W_static, NE, Nz):
+    """Test-only emulation of the order csrc/march_tri.cu sums in. Per
+    z-node the bins go in tiles of TILE from the highest down, the lowest
+    tile ragged. Tile J's p starts from its rows summed over tile J-1's
+    columns one at a time (the solver warp's fold), adds the left-looking
+    panel over the columns of the tiles above that, and then the in-tile
+    sweep runs down the tile's columns."""
+    B = A32.shape[0]
+    f32 = torch.float32
+    W = [march_tri._f32(w) for w in W_static]
+    phi = [torch.zeros(B, NE, dtype=f32) for _ in range(3)]
+    for t in range(Nz - 1):
+        PG, PAt, CO, R0, S0, CS, PT = (x[:, t] for x in xs)
+        off = Nz - 2 - t
+        Aw = A32[:, off:off + NE, off:off + NE]
+        U, V, qv, pu = march_tri._sm_node(PG, PAt, CO, R0, S0, PT, phi, W)
+        c1, c2 = CS * qv, CS * pu
+        cy = torch.zeros(B, NE, dtype=f32)
+        ps = torch.zeros(B, NE, dtype=f32)
+        for hi in range(NE, 0, -TILE):
+            lo, up = max(0, hi - TILE), min(hi + TILE, NE)  # tile J-1: [hi, up)
+            p = torch.zeros(B, hi - lo, dtype=f32)
+            for k in range(up - 1, hi - 1, -1):
+                p = p + Aw[:, lo:hi, k] * cy[:, k:k + 1]
+            p = p + (Aw[:, lo:hi, up:] * cy[:, None, up:]).sum(-1)
+            for k in range(hi - 1, lo - 1, -1):
+                i = k - lo
+                y = c1[:, k] + c2[:, k] * p[:, i]
+                cy[:, k] = y
+                ps[:, k] = p[:, i]
+                p[:, :i] = p[:, :i] + Aw[:, lo:k, k] * y[:, None]
+        reg = PT * ps
+        phi = [V[k] + reg * U[k] for k in range(3)]
+    return torch.stack(phi, dim=1)
+
+
+def test_tiled_order_matches_jax(state):
+    """The kernel's tiled order on JAX's tables and rows (NE 100: three
+    full tiles and a ragged one of 4) against ``march_tri_jax``; gate
+    5e-5 gated relative, the kernel's gate against its plain twin."""
+    A32 = interop.tables_from_jax(state["jtables"], device="cpu")[2][0]
+    xs = tuple(torch.as_tensor(r) for r in state["jrows"])
+    NE, Nz = CFG["N_bins_E"], state["Nz"]
+    j = np.asarray(jmt.march_tri_jax(
+        jnp.asarray(A32.numpy()), tuple(jnp.asarray(r) for r in state["jrows"]),
+        W_STATIC, NE, Nz))
+    t = _march_tri_tiled(A32, xs, W_STATIC, NE, Nz)
+    rel = _gated_rel(j, t.numpy())
+    assert rel.max() < 5e-5, rel.max()
+
+
+@pytest.mark.parametrize("n_bins", [20, 64, 130],
+                         ids=["NE20", "NE64", "NE130"])
+def test_tiled_order_matches_plain(n_bins):
+    """The tiled order against ``march_tri_plain`` on the port's own tables
+    and rows at g = 1e-2 (regeneration moves the flux by O(1)): one
+    ragged tile only (20), whole tiles only (64) and a ragged tail (130)."""
+    from nusiprop_tpu_torch import param_grid
+    from nusiprop_tpu_torch.config import Config
+
+    cfg = Config(**dict(CFG, N_bins_E=n_bins))
+    params = param_grid([1e5, 5e6], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                        device="cpu")
+    gr = grids.build(cfg)
+    tblG, tblAt, (A32, pref) = transport.build_tables(params, cfg)
+    nt = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
+    rows, _ = transport._trisolve_f32_rows(cfg, gr, params, nt, tblG, tblAt,
+                                           pref)
+    p = march_tri.march_tri_plain(A32, rows[:7], W_STATIC, n_bins,
+                                  gr.N_steps_z)
+    t = _march_tri_tiled(A32, rows[:7], W_STATIC, n_bins, gr.N_steps_z)
+    assert bool(torch.isfinite(t).all())
+    rel = _gated_rel(p.numpy(), t.numpy())
+    assert rel.max() < 5e-5, rel.max()
+
+
 def test_march_tri_wrapper_contract(state):
     """On CPU tensors the wrapper IS the plain twin (bitwise), counts no
     launch, and refuses what the kernel would not take."""
