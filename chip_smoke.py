@@ -40,11 +40,17 @@ phase printing one JSON line:
               against its plain twin on the full batch-1024 rows; wall
               times as above, the kernel time, the bound and peak memory
   march_ds_no_ceiling  K2 against its plain twin at 2048 bins, batch 2
+  march_ds_ragged  K2 against its plain twin at 501 bins, batch 3: an odd
+              row length and dead bins in the last thread
 
 then the kernels line (K1's entry adds its share of the bound, its times
 at batch 1 and batch 8, and its launch design: threads, tile width,
 dynamic shared memory at 500 and 1024 bins, and ptxas's registers and
-spills from the build phase),
+spills from the build phase; K2's entry adds its share of the bound, its
+time at 2048 bins, and its launch design at 500 and at 2048 bins: threads,
+bins per thread, block barriers per node, shared memory, registers and
+local-memory bytes per thread, and the resident blocks per SM that
+cudaOccupancyMaxActiveBlocksPerMultiprocessor gives),
 the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises: the script exits
 non-zero and prints no last line. It needs a CUDA device.
@@ -68,7 +74,7 @@ import time
 
 GATE = 5e-5        # kernel vs plain, gated relative (summation order only)
 GATE_FLOOR = 1e-10
-DS_GATE = 1e-10    # K2 vs its plain twin (same order; float64)
+DS_GATE = 1e-10    # K2 vs its plain twin (float64; another composition order)
 DS_FLOOR = 1e-25
 MNTOT = math.sqrt(7.42e-5) + math.sqrt(2.514e-3)
 PROD = dict(N_bins_E=500, lEmin=4.0, lEmax=9.0, zmax=5.0,
@@ -85,10 +91,12 @@ F64_FLOPS = 34e12
 # float32 operations per bin and node outside K1's row dot (counted from
 # csrc/march_tri.cu: two Sherman-Morrison passes, c1/c2, cy, x)
 K1_ELEM_FLOPS = 105
-# float64 operations per bin and node of K2 outside the prefix (counted
-# from csrc/march_ds.cu: izdr, M, adjugate, det, two solves, U.w, V.w, a,
-# b, the read-out) and per prefix level
-K2_NODE_FLOPS = 126
+# float64 operations of K2 per bin and node (counted from
+# csrc/march_ds.cu: izdr, M, adjugate, det, two solves, U.w, V.w, a, b:
+# 119; the read-out 7; the walk of cum 2) and per thread and node for one
+# composition of two affine maps (the serial compose of a thread's bins,
+# each level of the warp scan and of the totals scan)
+K2_NODE_FLOPS = 128
 K2_LEVEL_FLOPS = 3
 
 
@@ -330,12 +338,16 @@ def schannel_phases(dev, card):
           f"evolve_pallas vs grid_scan(rank1) {vs_rank1:.3e} < 1e-9")
     rows, meta = mds.prepare_rank1_inputs(params, cfg)
     cmp = compare_ds(mds, rows, meta)
-    bound = k2_bound(B, meta["n_steps"], meta["NE"])
+    design = mds.kernel_config(meta["NE"])
+    check(design["barriers_per_node"] == 1, "K2 takes one barrier per node")
+    check(design["resident_blocks_per_sm"] >= 2,
+          f"K2 keeps two blocks on an SM: {design}")
+    bound = k2_bound(B, meta["n_steps"], meta["NE"], design)
     emit(phase="march_ds", batch=B, NE=meta["NE"],
          n_steps=meta["n_steps"], reps=REPS, evolve_pallas_s=t_pallas,
          z_steps_per_s=B * meta["n_steps"] / t_pallas["median"],
          kernel_launches=launches, flux_fla_rel_vs_rank1=vs_rank1,
-         peak_mem_gb=peak / 1e9, **bound, card=card, **cmp)
+         peak_mem_gb=peak / 1e9, **bound, card=card, design=design, **cmp)
 
     # ---- no bin ceiling: 2048 bins, batch 2 ----
     cfg_big = Config(**dict(SCHANNEL, N_bins_E=2048))
@@ -343,21 +355,35 @@ def schannel_phases(dev, card):
                     device=dev)
     rows2, meta2 = mds.prepare_rank1_inputs(p2, cfg_big)
     cmp2 = compare_ds(mds, rows2, meta2)
+    design2 = mds.kernel_config(2048)
     emit(phase="march_ds_no_ceiling", batch=2, NE=2048,
-         n_steps=meta2["n_steps"], **cmp2)
+         n_steps=meta2["n_steps"], **cmp2,
+         **k2_bound(2, meta2["n_steps"], 2048, design2))
+
+    # ---- the ragged edge: 501 bins (odd rows, a dead bin), batch 3 ----
+    cfg_odd = Config(**dict(SCHANNEL, N_bins_E=501))
+    p3 = param_grid([1e5, 1e6, 1e7], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                    device=dev)
+    rows3, meta3 = mds.prepare_rank1_inputs(p3, cfg_odd)
+    cmp3 = compare_ds(mds, rows3, meta3)
+    emit(phase="march_ds_ragged", batch=3, NE=501,
+         n_steps=meta3["n_steps"], **cmp3)
+    cmps = (cmp, cmp2, cmp3)
 
     return dict(
         name="march_ds", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_ds.cu",
         replaces="nusiprop_tpu/ops/march_ds.py:333::_make_kernel",
         launches=launches, launches_by_path={"evolve_pallas": launches},
-        max_abs_err=max(cmp["max_abs_err"], cmp2["max_abs_err"]),
-        max_rel_vs_plain=max(cmp["max_rel_vs_plain"],
-                             cmp2["max_rel_vs_plain"]),
+        max_abs_err=max(c["max_abs_err"] for c in cmps),
+        max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         ms=cmp["kernel_ms"], plain_ms=cmp["plain_ms"], **bound,
         share_of_bound=bound["bound_ms"] / cmp["kernel_ms"], library_ms=None,
+        ms_ne2048_batch2=cmp2["kernel_ms"],
+        design=dict(design, ne2048=design2),
         shape=f"batch {B}, NE 500, Nz {Nz} (the "
-              "evolve_pallas path's own); also compared at NE 2048 batch 2")
+              "evolve_pallas path's own); also compared at NE 2048 batch 2 "
+              "and NE 501 batch 3")
 
 
 def k1_bound(B, NE, Nz):
@@ -373,13 +399,17 @@ def k1_bound(B, NE, Nz):
     return bound(nbytes, flops, F32_FLOPS)
 
 
-def k2_bound(B, n_steps, NE):
+def k2_bound(B, n_steps, NE, design):
     """K2's least time: five float64 rows per point, the shared DW row and
-    the flux once each, against the per-bin algebra and the prefix
-    levels."""
-    levels = max(1, math.ceil(math.log2(NE)))
+    the flux once each, against the per-bin algebra and the scan's
+    compositions per thread (its bins composed serially, five levels over
+    the warp, the levels over the warps' totals, and the map applied to
+    the state entering the warp), at the launch ``design``."""
+    threads, K = design["threads"], design["bins_per_thread"]
+    levels = (K - 1) + 5 + math.ceil(math.log2(max(1, threads // 32)))
     nbytes = 8 * (5 * B * n_steps * NE + n_steps * NE + 3 * B * NE)
-    flops = B * n_steps * NE * (K2_NODE_FLOPS + K2_LEVEL_FLOPS * levels)
+    flops = B * n_steps * (NE * K2_NODE_FLOPS
+                           + threads * (K2_LEVEL_FLOPS * levels + 2))
     return bound(nbytes, flops, F64_FLOPS)
 
 

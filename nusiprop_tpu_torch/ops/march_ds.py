@@ -10,14 +10,16 @@ whole march in float64 and has no double-single arithmetic:
   processing (descending energy) order: PG, PAt, PL, CO and CW of shape
   (B, Nz-1, NE), and DW, which depends on the grid only, as one
   (Nz-1, NE) row shared by every point. The JAX rows are padded to a
-  multiple of 128 bins for the TPU's lanes; the CUDA kernel strides its
-  bins over threads and needs no padding;
+  multiple of 128 bins for the TPU's lanes; the CUDA kernel gives each
+  thread a few consecutive bins and needs no padding;
 * ``march_ds_plain`` is the plain PyTorch twin of the JAX ``_march_body``:
   per z-node the adjugate 3x3 solve and the Hillis-Steele affine prefix,
   in the same order, batched;
 * ``march_ds_batched`` launches ``csrc/march_ds.cu`` (which replaces the
   Pallas TPU kernel ``nusiprop_tpu/ops/march_ds.py::_make_kernel``) on
-  CUDA tensors and runs the twin on CPU tensors only, counting launches;
+  CUDA tensors and runs the twin on CPU tensors only, counting launches.
+  The kernel composes the same affine maps hierarchically (thread, warp,
+  block), so it agrees with the twin to float64 round-off, not bitwise;
 * ``evolve_pallas`` (the JAX name) chains the three and ``_postprocess``.
 
 Physics identical to transport's ``rank1`` march (nuSIprop.hpp:257-315
@@ -38,9 +40,12 @@ ROW_NAMES = ("PG", "PAt", "PL", "CO", "CW", "DW")
 # exact power of two: CW (~1e-37 raw) is scaled up, DW down; every use
 # pairs them, so the f64 result is that of the raw rows
 _RS = 2.0 ** 100
-# the kernel's shared memory: two buffers of (a, b) doubles per bin
-_SMEM_PER_BIN = 4 * 8
-_SMEM_MAX = 232448  # bytes a block may use on Hopper
+# the kernel's bin ceiling: at most 16 bins on each of at most 512 threads
+# (csrc/march_ds.cu; its shared memory is 512 B whatever the bin count)
+_MAX_BINS = 16 * 512
+CONFIG_KEYS = ("threads", "bins_per_thread", "barriers_per_node",
+               "smem_bytes", "registers", "local_bytes_per_thread",
+               "resident_blocks_per_sm", "max_bins")
 
 
 def prepare_rank1_inputs(params: PhysicsParams, cfg: Config):
@@ -169,15 +174,38 @@ def _declare(lib):
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                    + [ctypes.c_double] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.march_ds_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.march_ds_config.restype = ctypes.c_int
     lib.march_ds_error_string.argtypes = [ctypes.c_int]
     lib.march_ds_error_string.restype = ctypes.c_char_p
+
+
+def config_of(lib, NE: int) -> dict:
+    """``CONFIG_KEYS`` of the launch at NE bins, asked of a built library
+    of the kernel (the registers, the local memory and the resident
+    blocks per SM come from the CUDA runtime on the current card)."""
+    vals = (ctypes.c_int * len(CONFIG_KEYS))()
+    err = lib.march_ds_config(NE, vals)
+    if err != 0:
+        raise RuntimeError("march_ds_config failed: "
+                           + lib.march_ds_error_string(err).decode())
+    return dict(zip(CONFIG_KEYS, vals))
+
+
+def kernel_config(NE: int) -> dict:
+    """The CUDA kernel's launch at NE bins: threads per block, consecutive
+    bins per thread, block barriers per node, shared memory per block,
+    registers and local (spill) bytes per thread, and the resident blocks
+    per SM that ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives.
+    Builds the kernel if needed; needs a CUDA device."""
+    return config_of(cuda_build.load("march_ds", _declare), NE)
 
 
 def march_ds_batched(rows, meta):
     """The fused march for a batch: the CUDA kernel for CUDA tensors, the
     plain twin for CPU tensors (and nothing else). Same contract as
-    ``march_ds_plain``; counts kernel launches in
-    ``march_ds_batched.launches``."""
+    ``march_ds_plain`` (the kernel agrees with it to float64 round-off);
+    counts kernel launches in ``march_ds_batched.launches``."""
     missing = set(ROW_NAMES) - set(rows)
     if missing:
         raise ValueError(f"missing rows {sorted(missing)}")
@@ -201,11 +229,10 @@ def march_ds_batched(rows, meta):
         raise ValueError(f"march_ds runs on cpu or cuda, not {dev}")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("march_ds needs contiguous rows on CUDA")
-    if NE * _SMEM_PER_BIN > _SMEM_MAX:
+    if NE > _MAX_BINS:
         raise ValueError(
-            f"{NE} bins need {NE * _SMEM_PER_BIN} B of shared memory per "
-            f"block; the card gives {_SMEM_MAX} B "
-            f"(at most {_SMEM_MAX // _SMEM_PER_BIN} bins)")
+            f"{NE} bins are more than the kernel's block takes: 16 bins on "
+            f"each of 512 threads (at most {_MAX_BINS} bins)")
     lib = cuda_build.load("march_ds", _declare)
     out = torch.empty(B, 3, NE, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):

@@ -12,8 +12,10 @@ the port's own tables and rows at 0.05 decades/bin (lE in [4, 9], zmax 5,
 dsnb, Majorana, phi-phi off); gate: gated relative < 5e-5 (floor 1e-10),
 the only difference being the float32 summation order of the row dot.
 K2's inputs are the port's float64 rows of the s-channel config on the
-same energy window; gate: gated relative < 1e-10 (mask 1e-25 of the max),
-though kernel and twin compose in the same order and agree bitwise.
+same energy window; gate: gated relative < 1e-10 (mask 1e-25 of the max):
+the kernel composes the affine maps hierarchically (thread, warp, block)
+and the twin by doubling over all bins, so they agree to float64
+round-off.
 """
 
 import numpy as np
@@ -110,11 +112,20 @@ def test_kernel_refuses_strided_rows_on_card():
         march_tri.march_tri(A32, (strided,) + tuple(xs[1:]), W, 100, Nz)
 
 
-@pytest.mark.parametrize("n_bins,batch", [(64, 3), (500, 4), (2048, 2)],
-                         ids=["NE64", "NE500", "NE2048"])
+@pytest.mark.parametrize(
+    "n_bins,batch",
+    [(64, 3), (500, 4), (2048, 2), (20, 3), (33, 3), (501, 3), (1024, 2),
+     (1025, 2), (500, 1), (100, 300), (2100, 1)],
+    ids=["NE64", "NE500", "NE2048", "NE20", "NE33", "NE501", "NE1024",
+         "NE1025", "NE500-batch1", "NE100-batch300", "NE2100"])
 def test_march_ds_kernel_matches_plain_on_card(n_bins, batch):
-    """One thread per bin (NE 64, 500) and four bins per thread (NE 2048:
-    no bin ceiling below the shared-memory limit)."""
+    """The hierarchical scan at its edges: less than one warp (NE 20), one
+    bin into a second warp (33), whole warps (64), two bins per thread
+    with a ragged last warp (500) and an odd row length (501), the last
+    shape of four bins per thread (1024) and the first of eight (1025),
+    eight bins per thread filled (2048) and sixteen on 512 threads
+    (2100); one point (batch 1) and more blocks than one wave of the
+    card holds (batch 300)."""
     dev = _card()
     cfg = Config(N_bins_E=n_bins, lEmin=4.0, lEmax=9.0, zmax=5.0,
                  non_resonant=False, phiphi=False)
