@@ -25,18 +25,38 @@ phase printing one JSON line:
   kernel_vs_plain  the same comparison on the first 8 production points
   no_ceiling  the same comparison at 1024 bins (NEXT 1183), batch 2, at
               g = 1e-2 where regeneration dominates
+  trisolve_f32  the production batch through grid_scan with march
+              "trisolve_f32" (the eager float32 march on the same tables
+              and rows) against the K1 path's flux on the same points
+              (gated rel < 5e-5); warm wall of its march stage beside K1's
+  dirac       the production config with majorana=False, 8 points (mphi =
+              geomspace(1e5, 1e8), g = 1e-2), through
+              K1 ("auto") against "trisolve_f32" (gated rel < 5e-5), and K1
+              against its plain twin on these tables
+  trisolve_f64  the clean point of tests/test_march_tri.py at full width
+              (500 bins over lE in [9, 14], power-law source, mphi 6e5,
+              g 1e-2, mntot 0.1, si 2.5) through Evolver with march
+              "trisolve" (f64 closed forms) against the K1 path (gated rel
+              < 1e-3); then the production config with table_dtype "f64" at
+              batch 32 through grid_scan in chunks of 16: finite flux, warm
+              wall, the table build's share of it, peak memory; its
+              difference from the K1 path is printed and not gated (the
+              f64 closed forms are noise below the resonance)
   schannel_evolver  the golden config (test.py's: mphi 5e6, g 1e-6, 100
               bins over lE in [4, 9], dsnb, Majorana, NO, flav 2) through
-              Evolver with march "auto" (rank1, f64) against
-              tests/data/data_massless.txt (< 1e-3 per bin), and its
-              energy drift (~0.8816)
+              Evolver with march "auto" (rank1, f64: K2's route on the
+              card) against tests/data/data_massless.txt (< 1e-3 per bin),
+              and its energy drift (~0.8816)
   schannel_grid_scan  the bench's s-channel regime (500 bins over lE in
               [4, 9], zmax 5, batch 1024, mphi = geomspace(1e5, 1e8),
               g = 1e-2) through grid_scan with march "rank1" and
               "rank1_f32": warm wall times (median, min and max of
               REPS runs) and z-steps/s at the median
+  rank1_route  grid_scan(rank1) at that shape launches K2; its flux
+              against the eager rank1 march on the card (evolve_core;
+              masked rel < 1e-10); warm walls of both in this one call
   march_ds    evolve_pallas at that batch-1024 shape (the path of K2):
-              its launches, its flux against grid_scan(rank1)'s; K2
+              its launches, its flux against the eager rank1 march's; K2
               against its plain twin on the full batch-1024 rows; wall
               times as above, the kernel time, the bound and peak memory
   march_ds_no_ceiling  K2 against its plain twin at 2048 bins, batch 2
@@ -61,7 +81,9 @@ only the band of its table that the march touches, K2 reads DW as one
 row shared by every point) over 3.35 TB/s and
 its operations over the card's peak for their type: 67 TFLOP/s float32
 (K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
-outside the tensor cores.
+outside the tensor cores. K1's operations form one dependency chain per
+point, so its operation time is the larger of that rate and the chain's
+latency (``k1_bound``).
 """
 
 import json
@@ -91,6 +113,21 @@ F64_FLOPS = 34e12
 # float32 operations per bin and node outside K1's row dot (counted from
 # csrc/march_tri.cu: two Sherman-Morrison passes, c1/c2, cy, x)
 K1_ELEM_FLOPS = 105
+# K1's dependency chain: a point's back-substitution is (Nz-1)*NE steps,
+# each waiting for the step before it through at least one warp shuffle
+# (a bin's cy reaches the lanes that hold the rows above it) and one fused
+# multiply-add (p += A*cy, or cy = c1 + c2*p). Assumed latencies on
+# Hopper: 24 cycles for shfl.sync, 4 cycles for a dependent FFMA, at the
+# H100 SXM's 1.98 GHz boost clock. No batch size shortens the chain: the
+# points run side by side, each with its own.
+SHFL_CYCLES = 24
+FMA_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
+F64_GATE = 1e-3    # the K1 path vs the f64 closed-form engine, clean point
+CLEAN = dict(N_bins_E=500, lEmin=9.0, lEmax=14.0, zmax=5.0,
+             non_resonant=True, majorana=True, normal_ordering=True,
+             flav=2, phiphi=False, source="powerlaw")
+CLEAN_POINT = dict(mphi=6e5, g=1e-2, mntot=0.1, si=2.5, norm=1.0)
 # float64 operations of K2 per bin and node (counted from
 # csrc/march_ds.cu: izdr, M, adjugate, det, two solves, U.w, V.w, a, b:
 # 119; the read-out 7; the walk of cum 2) and per thread and node for one
@@ -242,7 +279,56 @@ def main():
     emit(phase="no_ceiling", batch=2, NE=1024, Nz=Nz2, NEXT=1024 + Nz2 - 2,
          **public(cmp1024))
 
-    cmps = (cmp1, cmp128, cmp500, cmp1024)
+    # ---- march "trisolve_f32": the eager f32 march on the same tables ----
+    cfg_f32 = Config(**dict(PROD, march="trisolve_f32"))
+    res_f32 = grid_scan(params, cfg_f32)         # warm-up, kept
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(res_f32.flux_fla).all()), "trisolve_f32 finite")
+    f32_rel = gated_rel(res.flux_fla, res_f32.flux_fla)
+    check(f32_rel < GATE, f"trisolve_f32 vs K1 path {f32_rel:.3e} < {GATE}")
+    torch.cuda.reset_peak_memory_stats()
+    t_f32_stage = wall_times(lambda: transport.evolve_core(
+        params, cfg_f32, "trisolve_f32", tables=tables), reps=3)
+    peak_f32 = torch.cuda.max_memory_allocated()
+    t_k1_stage = wall_times(
+        lambda: mt.march_fused_with_tables(params, tables, cfg), reps=3)
+    emit(phase="trisolve_f32", batch=B, NE=NE, Nz=Nz,
+         flux_fla_rel_vs_k1_path=f32_rel, march_stage_s=t_f32_stage,
+         k1_march_stage_s=t_k1_stage,
+         ms_per_node=t_f32_stage["median"] / (Nz - 1) * 1e3,
+         march_stage_peak_mem_gb=peak_f32 / 1e9,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, card=card)
+
+    # ---- Dirac on the main path: 8 points through K1, at g = 1e-2 (at
+    # the batch's g = 1e-3 regeneration moves the flux by < 0.5% and two
+    # solvers cannot be told apart in float32) ----
+    cfg_d = Config(**dict(PROD, majorana=False))
+    p8 = param_grid(torch.logspace(5, 8, 8, dtype=torch.float64), [1e-2],
+                    mntot=MNTOT, si=2.0, norm=6.0, device=dev)
+    grid_scan(p8, cfg_d)                         # warm-up
+    mt.march_tri.launches = 0
+    res_d = grid_scan(p8, cfg_d)
+    n_dirac = mt.march_tri.launches
+    check(n_dirac >= 1, "Dirac grid_scan launched the kernel")
+    check(bool(torch.isfinite(res_d.flux_fla).all()), "Dirac flux finite")
+    check(bool((res_d.flux >= 0).all()), "Dirac flux non-negative")
+    res_d32 = grid_scan(p8, Config(**dict(PROD, majorana=False,
+                                          march="trisolve_f32")))
+    dirac_rel = gated_rel(res_d32.flux_fla, res_d.flux_fla)
+    check(dirac_rel < GATE,
+          f"Dirac K1 vs trisolve_f32 {dirac_rel:.3e} < {GATE}")
+    m_d = march_inputs(p8, cfg_d, transport.build_tables(p8, cfg_d))
+    cmp_d = compare(mt, m_d)
+    cmp_d["flux_rel_vs_plain"] = flux_vs_plain(res_d.flux, m_d, cmp_d["plain"])
+    maj_vs_dirac = gated_rel(grid_scan(p8, cfg).flux_fla, res_d.flux_fla)
+    check(maj_vs_dirac > GATE, "Dirac tables differ from the Majorana ones")
+    emit(phase="dirac", batch=8, NE=NE, kernel_launches=n_dirac,
+         flux_fla_rel_vs_trisolve_f32=dirac_rel,
+         flux_fla_rel_vs_majorana=maj_vs_dirac, **public(cmp_d))
+
+    f64 = trisolve_f64_phase(dev, card, params, res)
+
+    cmps = (cmp1, cmp128, cmp500, cmp1024, cmp_d)
     b1 = k1_bound(B, NE, Nz)
     design = dict(mt.kernel_config(NE),
                   smem_bytes_ne1024=mt.kernel_config(1024)["smem_bytes"],
@@ -251,18 +337,22 @@ def main():
         name="march_tri", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_tri.cu",
         replaces="nusiprop_tpu/ops/march_tri.py:83::_make_kernel",
-        launches=n_ev + main_launches,
-        launches_by_path={"evolver": n_ev, "grid_scan": main_launches},
+        launches=n_ev + main_launches + n_dirac + f64["k1_launches"],
+        launches_by_path={"evolver": n_ev, "grid_scan": main_launches,
+                          "dirac": n_dirac,
+                          "trisolve_f64_partner": f64["k1_launches"]},
         max_abs_err=max(c["max_abs_err"] for c in cmps),
         max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         max_flux_rel_vs_plain=max(cmp1["flux_rel_vs_plain"],
-                                  cmp128["flux_rel_vs_plain"]),
+                                  cmp128["flux_rel_vs_plain"],
+                                  cmp_d["flux_rel_vs_plain"]),
         ms=cmp128["kernel_ms"], plain_ms=cmp128["plain_ms"], **b1,
         share_of_bound=b1["bound_ms"] / cmp128["kernel_ms"],
         ms_batch1=cmp1["kernel_ms"], ms_batch8=cmp500["kernel_ms"],
         library_ms=None, design=design,
         shape="batch 128, NE 500, Nz 79 (the grid_scan path's own); "
-              "also compared at batch 1, batch 8 and NE 1024 batch 2")
+              "also compared at batch 1, batch 8, NE 1024 batch 2 and on "
+              "the Dirac tables at batch 8")
 
     k2 = schannel_phases(dev, card)
     emit(kernels=[k1, k2])
@@ -273,21 +363,92 @@ def main():
     return 0
 
 
+def trisolve_f64_phase(dev, card, params, k1_res):
+    """The f64 closed-form engine on the card: the clean point through
+    Evolver(march="trisolve") against the K1 path (gated), then the
+    production config with f64 tables at batch 32 in chunks of 16 (its
+    difference from the K1 path ``k1_res`` is printed, not gated).
+    Returns the K1 launches of the clean point's partner."""
+    import torch
+
+    from nusiprop_tpu_torch import Evolver, grid_scan
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.models import transport
+    from nusiprop_tpu_torch.ops import march_tri as mt
+
+    ev64 = Evolver(device=dev, march="trisolve", **CLEAN_POINT, **CLEAN)
+    ev64.evolve()
+    mt.march_tri.launches = 0
+    ev_k1 = Evolver(device=dev, **CLEAN_POINT, **CLEAN).evolve()
+    k1_launches = mt.march_tri.launches
+    check(k1_launches >= 1, "the clean point's partner went through K1")
+    f64 = ev64._result.flux_fla
+    check(bool(torch.isfinite(f64).all()) and bool((f64 >= 0).all()),
+          "f64 trisolve flux finite and non-negative")
+    clean_rel = gated_rel(f64[None], ev_k1._result.flux_fla[None])
+    check(clean_rel < F64_GATE,
+          f"K1 path vs f64 trisolve at the clean point {clean_rel:.3e} "
+          f"< {F64_GATE}")
+    t_clean = wall_times(ev64.evolve, reps=3)
+
+    # ---- the production config on f64 tables, batch 32, chunks of 16 ----
+    B, chunk = 32, 16
+    cfg64 = Config(**dict(PROD, table_dtype="f64"))
+    check(transport._resolve_march(cfg64, dev) == "trisolve",
+          "table_dtype='f64' resolves to the f64 trisolve march")
+    p32 = params.map(lambda x: x[::4].contiguous())
+    grid_scan(p32, cfg64, chunk_size=chunk)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = grid_scan(p32, cfg64, chunk_size=chunk)
+    torch.cuda.synchronize()
+    t_evolve = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(res.flux_fla).all()), "f64-table flux finite")
+    t0 = time.perf_counter()
+    for s in range(0, B, chunk):
+        transport.build_tables(p32.map(lambda x: x[s:s + chunk]), cfg64)
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    ref = k1_res.flux_fla[::4]
+    scale = ref.abs().amax(dim=(-1, -2), keepdim=True)
+    gate = ref.abs() > scale * GATE_FLOOR
+    rel = ((res.flux_fla - ref).abs() / ref.abs())[gate]
+    Nz = res.z.shape[-1]
+    emit(phase="trisolve_f64", clean_point_rel_vs_k1_path=clean_rel,
+         clean_point_evolve_s=t_clean, k1_launches=k1_launches,
+         batch=B, chunk_size=chunk, NE=PROD["N_bins_E"], evolve_s=t_evolve,
+         tables_s=t_tables, tables_share=t_tables / t_evolve,
+         z_steps_per_s=B * (Nz - 1) / t_evolve, peak_mem_gb=peak / 1e9,
+         peak_mem_gb_per_point=peak / 1e9 / chunk,
+         ungated_rel_vs_k1_path=dict(max=float(rel.max()),
+                                     median=float(rel.median())),
+         worst_rel_neg=float(res.health[:, 0].min()),
+         nonfinite_table_entries=float(res.health[:, 1].sum()), card=card)
+    return dict(k1_launches=k1_launches)
+
+
 def schannel_phases(dev, card):
-    """The s-channel golden path (slice B): Evolver and grid_scan through
-    the rank1 marches, and K2 through evolve_pallas. Returns K2's entry
-    of the kernels line."""
+    """The s-channel golden path: Evolver and grid_scan through the rank1
+    marches (the f64 one is K2's route on the card), the eager rank1
+    march beside it, and K2 through evolve_pallas. Returns K2's entry of
+    the kernels line."""
     import numpy as np
     import torch
 
     from nusiprop_tpu_torch import Evolver, grid_scan, param_grid
     from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.models import transport
     from nusiprop_tpu_torch.ops import march_ds as mds
 
     # ---- Evolver, march "auto" (rank1 f64), against the golden file ----
     ev = Evolver(device=dev, **GOLDEN)
     check(ev.config.march == "auto", "Evolver default march")
+    mds.march_ds_batched.launches = 0
     ev.evolve()
+    n_ev = mds.march_ds_batched.launches
+    check(n_ev >= 1, "the s-channel Evolver went through K2")
     ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "data", "data_massless.txt"),
                      skiprows=1)
@@ -298,7 +459,7 @@ def schannel_phases(dev, card):
     drift = ev.check_energy_conservation()
     check(abs(drift - 0.8816) < 1e-3, f"energy drift {drift} ~ 0.8816")
     emit(phase="schannel_evolver", golden_max_rel=golden_rel,
-         energy_drift=drift, device=str(ev.device))
+         energy_drift=drift, device=str(ev.device), kernel_launches=n_ev)
 
     # ---- the bench's s-channel regime through grid_scan ----
     B = 1024
@@ -306,9 +467,14 @@ def schannel_phases(dev, card):
     params = param_grid(torch.logspace(5, 8, B, dtype=torch.float64), [1e-2],
                         mntot=MNTOT, si=2.0, norm=6.0, device=dev)
     runs = {}
+    grid_scan(params, Config(**dict(SCHANNEL, march="rank1")))  # warm-up
     for march in ("rank1", "rank1_f32"):
         c = Config(**dict(SCHANNEL, march=march))
-        res = grid_scan(params, c)                   # warm-up, kept
+        mds.march_ds_batched.launches = 0
+        res = grid_scan(params, c)                   # kept
+        if march == "rank1":
+            n_gs = mds.march_ds_batched.launches
+            check(n_gs >= 1, "grid_scan(rank1) launched K2")
         check(bool(torch.isfinite(res.flux_fla).all()), f"{march} finite")
         check(bool((res.flux_fla >= 0).all()), f"{march} non-negative")
         runs[march] = (res, wall_times(lambda: grid_scan(params, c)))
@@ -322,6 +488,23 @@ def schannel_phases(dev, card):
             for m, (_, t) in runs.items()},
          rank1_f32_vs_rank1_gated_rel=f32_rel, card=card)
 
+    # ---- the rank1 route (K2) against the eager rank1 march on the card ----
+    c_rank1 = Config(**dict(SCHANNEL, march="rank1"))
+    eager = transport.evolve_core(params, c_rank1, "rank1")   # warm-up, kept
+    route_rel = masked_rel(eager.flux_fla, runs["rank1"][0].flux_fla)
+    check(route_rel < DS_GATE,
+          f"grid_scan(rank1) vs the eager march {route_rel:.3e} < {DS_GATE}")
+    check(bool(torch.equal(eager.health[:, 1:],
+                           runs["rank1"][0].health[:, 1:])),
+          "the route's health counts and depth are the eager march's")
+    t_eager = wall_times(
+        lambda: transport.evolve_core(params, c_rank1, "rank1"))
+    emit(phase="rank1_route", batch=B, NE=cfg.N_bins_E, reps=REPS,
+         kernel_launches=n_gs, evolver_kernel_launches=n_ev,
+         flux_fla_rel_vs_eager=route_rel, route_s=runs["rank1"][1],
+         eager_s=t_eager, golden_max_rel=golden_rel, energy_drift=drift,
+         card=card)
+
     # ---- K2's path: evolve_pallas at the same batch-1024 shape ----
     mds.evolve_pallas(params, cfg)                   # warm-up
     torch.cuda.synchronize()
@@ -333,9 +516,9 @@ def schannel_phases(dev, card):
     check(launches >= 1, "evolve_pallas launched K2")
     peak = torch.cuda.max_memory_allocated()
     t_pallas = wall_times(lambda: mds.evolve_pallas(params, cfg))
-    vs_rank1 = masked_rel(runs["rank1"][0].flux_fla, fla)
+    vs_rank1 = masked_rel(eager.flux_fla, fla)
     check(vs_rank1 < 1e-9,
-          f"evolve_pallas vs grid_scan(rank1) {vs_rank1:.3e} < 1e-9")
+          f"evolve_pallas vs the eager rank1 march {vs_rank1:.3e} < 1e-9")
     rows, meta = mds.prepare_rank1_inputs(params, cfg)
     cmp = compare_ds(mds, rows, meta)
     design = mds.kernel_config(meta["NE"])
@@ -374,7 +557,9 @@ def schannel_phases(dev, card):
         name="march_ds", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_ds.cu",
         replaces="nusiprop_tpu/ops/march_ds.py:333::_make_kernel",
-        launches=launches, launches_by_path={"evolve_pallas": launches},
+        launches=launches + n_gs + n_ev,
+        launches_by_path={"evolve_pallas": launches, "grid_scan": n_gs,
+                          "evolver": n_ev},
         max_abs_err=max(c["max_abs_err"] for c in cmps),
         max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         ms=cmp["kernel_ms"], plain_ms=cmp["plain_ms"], **bound,
@@ -387,16 +572,32 @@ def schannel_phases(dev, card):
 
 
 def k1_bound(B, NE, Nz):
-    """K1's least time: the part of the table it reads, seven rows and phi
-    once each, against the live triangle's multiply-adds plus the per-bin
-    algebra. The table is strictly upper triangular and the march reads
-    row r at columns r+1 .. off+NE-1 only: over all nodes that is the band
-    of NE-1 columns above the diagonal, NEXT(NE-1) - NE(NE-1)/2 entries."""
+    """K1's least time, the largest of three: the bytes (the part of the
+    table it reads, seven rows and phi once each) over the memory rate;
+    the live triangle's multiply-adds plus the per-bin algebra over the
+    float32 rate; and the dependency chain of one point's
+    back-substitution, (Nz-1)*NE steps of one shuffle and one fused
+    multiply-add each (the latencies assumed at SHFL_CYCLES). The table is
+    strictly upper triangular and the march reads row r at columns r+1 ..
+    off+NE-1 only: over all nodes that is the band of NE-1 columns above
+    the diagonal, NEXT(NE-1) - NE(NE-1)/2 entries. ``bound_by`` says
+    "bytes" or "operations"; ``operations_by`` says whether the operations'
+    time is their rate's or their chain's."""
     NEXT = NE + Nz - 2
     band = NEXT * (NE - 1) - NE * (NE - 1) // 2
     nbytes = 4 * (B * band + 7 * B * (Nz - 1) * NE + 3 * B * NE)
     flops = B * (Nz - 1) * (NE * (NE - 1) + K1_ELEM_FLOPS * NE)
-    return bound(nbytes, flops, F32_FLOPS)
+    out = bound(nbytes, flops, F32_FLOPS)
+    steps = (Nz - 1) * NE
+    chain_ms = steps * (SHFL_CYCLES + FMA_CYCLES) / SM_CLOCK_HZ * 1e3
+    out.update(bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               rate_ms=flops / F32_FLOPS * 1e3, chain_ms=chain_ms,
+               chain_steps=steps,
+               operations_by="chain" if chain_ms > flops / F32_FLOPS * 1e3
+               else "rate")
+    if chain_ms > out["bound_ms"]:
+        out.update(bound_ms=chain_ms, bound_by="operations")
+    return out
 
 
 def k2_bound(B, n_steps, NE, design):
@@ -433,13 +634,13 @@ def bound(nbytes, flops, peak):
                 bound_bytes=nbytes, bound_flops=flops)
 
 
-def wall_times(fn):
-    """Host-clock wall of ``fn`` (synchronized) over REPS warm runs: the
-    median, min and max in seconds."""
+def wall_times(fn, reps=REPS):
+    """Host-clock wall of ``fn`` (synchronized) over ``reps`` warm runs:
+    the median, min and max in seconds."""
     import torch
 
     ts = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()

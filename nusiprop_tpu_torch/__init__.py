@@ -2,14 +2,15 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The JAX package ``nusiprop_tpu`` stays the reference; this package mirrors
-its layout module by module and imports no JAX. Ported so far: the
-non-resonant main path (native-f32 tables, preconditioned f32 rows, and
-the fused trisolve march as a hand-written CUDA kernel,
-``csrc/march_tri.cu``) and the s-channel golden path (the f64 closed
-forms, the rank1 / rank1_f32 / loop marches, and the fused rank1 march
-as a native-fp64 CUDA kernel, ``csrc/march_ds.cu``); the rest is queued
-in ROADMAP.md. The entry points put their tensors on the card unless the
-caller passes ``device="cpu"``.
+its layout module by module and imports no JAX. Ported so far: every
+march mode of ``Config`` for every channel family but phi-phi, Majorana
+and Dirac: the native-f32 and the float64 closed-form tables, the
+preconditioned f32 rows, the fused trisolve march as a hand-written CUDA
+kernel (``csrc/march_tri.cu``), the fused rank1 march as a native-fp64
+CUDA kernel (``csrc/march_ds.cu``), and the eager trisolve, trisolve_f32,
+rank1, rank1_f32 and loop marches; the rest is queued in ROADMAP.md. The
+entry points put their tensors on the card unless the caller passes
+``device="cpu"``.
 """
 
 from nusiprop_tpu_torch.api import Evolver, pyprop

@@ -4,11 +4,11 @@
 check, the ``get_*`` accessors, ``check_energy_conservation`` and the
 ``interp_flux_*`` interpolators.
 
-It runs the non-resonant main path through the fused march and the
-s-channel configs (``non_resonant=False``) through the rank1 marches;
-there the default ``phiphi=True`` is inert, as in the JAX package. phi-phi
-on a non-resonant config, ``coupling_matrix`` and ``audit`` raise
-``NotImplementedError`` naming their ROADMAP slices.
+It runs every march mode of ``Config`` (``transport._resolve_march``);
+on s-channel configs (``non_resonant=False``) the default ``phiphi=True``
+is inert, as in the JAX package. phi-phi on a non-resonant config,
+``coupling_matrix`` and ``audit`` raise ``NotImplementedError`` naming
+their ROADMAP slices.
 """
 
 import sys
@@ -26,8 +26,9 @@ class Evolver:
 
     Arguments as the JAX ``Evolver`` (reference nuSIprop.pyx:47-52
     defaults), plus:
-      march  ---- march mode ["auto": the fused CUDA march for
-                  non-resonant configs on a card, "rank1" for s-channel]
+      march  ---- march mode ["auto": for non-resonant configs the fused
+                  CUDA march on a card and the f64 "trisolve" on the CPU,
+                  "rank1" for s-channel configs]
       device ---- torch device of every tensor ["cuda"; raises when no
                   card is present, pass "cpu" to run on the CPU]
     """

@@ -31,11 +31,18 @@ def config_from_jax(cfg) -> Config:
 
 
 def tables_from_jax(tables, device="cuda"):
-    """The JAX ``transport.build_tables`` output for the fused march,
-    ``(tblG, tblAt, (A32, pref))``, as torch tensors of the same dtypes."""
-    tblG, tblAt, (A32, pref) = tables
-    return (_t(tblG, device), _t(tblAt, device),
-            (_t(A32, device), _t(pref, device)))
+    """The JAX ``transport.build_tables`` output as torch tensors of the
+    same dtypes, in either of its forms: ``(tblG, tblAt, (A32, pref))``
+    for the float32 marches (``trisolve_pallas``, ``trisolve_f32``) and
+    the all-float64 ``(tblG, tblAt, tblA)`` of ``trisolve`` and ``loop``
+    (closed forms, or the f32 quadrature table under
+    ``table_dtype="f32"``)."""
+    tblG, tblAt, tblA = tables
+    if isinstance(tblA, (tuple, list)):
+        tblA = tuple(_t(x, device) for x in tblA)
+    else:
+        tblA = _t(tblA, device)
+    return _t(tblG, device), _t(tblAt, device), tblA
 
 
 def rank1_inputs_from_jax(inp, NE, device="cuda"):

@@ -1,14 +1,14 @@
 """Self-interaction kernel tables in float64: the s-channel (resonant)
-closed forms and their table builders (port of the s-channel part of
-``nusiprop_tpu.models.kernels``), plus the helpers the native-f32 table
-functions share.
+closed forms and the table functions over every channel but phi-phi (port
+of ``nusiprop_tpu.models.kernels`` without its phi-phi functions), plus
+the helpers the native-f32 table functions share.
 
 Each channel returns the reference value pre-multiplied by mphi^2
 (Gamma) or mphi^4 (alpha, alphaTilde), with prefactors grouped as
 (g^2 / denom) * g^2, exactly as the JAX code (see its RANGE SAFETY note);
 the table builders then apply only |U|^2 / (2 mn). The non-resonant
-channels (t/u, tu, s-t/s-u) are slice C of the port and phi-phi is
-slice D: a table builder asked for them raises ``NotImplementedError``.
+channels (t/u, tu, s-t/s-u) live in ``kernels_nr``; phi-phi is slice D of
+the port: a table function asked for it raises ``NotImplementedError``.
 
 Batch convention (as ``kernels_f32``): ``Em``/``Ep`` are (N,) float64
 bin edges, ``mn`` is (..., 3) and ``g``/``mphi`` carry the batch shape
@@ -112,16 +112,15 @@ def alpha_s(tm, tp, smp, spp, g, mphi, ga):
 
 
 # ---------------------------------------------------------------------------
-# Table builders (s-channel only)
+# Table functions
 # ---------------------------------------------------------------------------
 
-def _s_channel_only(non_resonant: bool, phiphi: bool):
-    if non_resonant:
-        raise NotImplementedError(
-            "the non-resonant f64 channels (t/u, tu, s-t/s-u) are slice C "
-            "(ROADMAP queue 1 item 10)"
-            + ("; phi-phi is slice D (ROADMAP queue 1 item 11)"
-               if phiphi else ""))
+_CHANNELS = ("all", "s", "t_u", "tu", "st", "pp")
+
+
+def _check_channel(channel):
+    if channel not in _CHANNELS:
+        raise ValueError(f"unknown channel {channel!r}; one of {_CHANNELS}")
 
 
 def _s_coords(E, mn_c, mphi, sign):
@@ -131,37 +130,61 @@ def _s_coords(E, mn_c, mphi, sign):
     return _shift_near_minus1(x) if sign < 0 else x
 
 
-def gamma_table(Em, Ep, mn, g, mphi, Wf, *, majorana, non_resonant, phiphi):
-    """Absorption table sum_j |U_fj|^2 int sigma_j dE / (2 mn_j): (..., N)."""
-    _s_channel_only(non_resonant, phiphi)
+def gamma_table(Em, Ep, mn, g, mphi, Wf, *, majorana, non_resonant, phiphi,
+                channel="all"):
+    """Absorption table sum_j |U_fj|^2 int sigma_j dE / (2 mn_j): (..., N).
+    ``channel`` restricts to one contribution ("s" or a kernels_nr channel
+    name), so a caller can sum the channels in an order of its own."""
+    _check_channel(channel)
     ga = scalar_width(g, mphi, majorana)
     mn_c = mn[..., :, None]
     sp = _s_coords(Ep, mn_c, mphi, 1.0)
     sm = _s_coords(Em, mn_c, mphi, 1.0)
-    tot = gamma_s(sm, sp, bc2(g), bc2(mphi), bc2(ga))
+    if channel in ("all", "s"):
+        tot = gamma_s(sm, sp, bc2(g), bc2(mphi), bc2(ga))
+    else:
+        tot = torch.zeros_like(sm)
+    if non_resonant and channel != "s":
+        from nusiprop_tpu_torch.models import kernels_nr
+
+        tot = tot + kernels_nr.gamma_nonresonant(
+            sm, sp, bc2(g), bc2(mphi), bc2(ga), majorana=majorana,
+            phiphi=phiphi, channel=channel)
+    # channels return mphi^2 * Gamma_ch, so only |U|^2/(2 mn_j) remains
     return torch.sum(Wf[:, None] / (2.0 * mn_c) * tot, dim=-2)
 
 
 def alphatilde_table(Em, Ep, mn, g, mphi, Wf, *, majorana, non_resonant,
-                     phiphi):
-    """Same-bin regeneration table (..., N), with Dirac's 1/2 (one of the
-    final Dirac neutrinos is sterile)."""
-    _s_channel_only(non_resonant, phiphi)
+                     phiphi, channel="all"):
+    """Same-bin regeneration table (..., N), with Dirac's 1/2 on the
+    s-channel (one of the final Dirac neutrinos is sterile)."""
+    _check_channel(channel)
     ga = scalar_width(g, mphi, majorana)
     mn_c = mn[..., :, None]
     tp = _s_coords(Ep, mn_c, mphi, -1.0)
     tm = _s_coords(Em, mn_c, mphi, -1.0)
-    tot = alphatilde_s(tm, tp, bc2(g), bc2(mphi), bc2(ga))
-    if not majorana:
-        tot = tot / 2.0
+    if channel in ("all", "s"):
+        tot = alphatilde_s(tm, tp, bc2(g), bc2(mphi), bc2(ga))
+        if not majorana:
+            tot = tot / 2.0
+    else:
+        tot = torch.zeros_like(tm)
+    if non_resonant and channel != "s":
+        from nusiprop_tpu_torch.models import kernels_nr
+
+        tot = tot + kernels_nr.alphatilde_nonresonant(
+            tm, tp, bc2(g), bc2(mphi), bc2(ga), majorana=majorana,
+            phiphi=phiphi, channel=channel)
     return torch.sum(Wf[:, None] / (2.0 * mn_c) * tot, dim=-2)
 
 
-def alpha_table(Em, Ep, mn, g, mphi, Wf, *, majorana, non_resonant, phiphi):
+def alpha_table(Em, Ep, mn, g, mphi, Wf, *, majorana, non_resonant, phiphi,
+                channel="all"):
     """Bin-to-bin regeneration table (..., N, N): rows = target bin,
     cols = source bin, strictly upper triangular (source above target),
-    zero elsewhere. Evaluated on the N(N-1)/2 pairs and scattered."""
-    _s_channel_only(non_resonant, phiphi)
+    zero elsewhere. Evaluated on the N(N-1)/2 pairs and scattered, which
+    halves the dominant cost of a non-resonant f64 evolve."""
+    _check_channel(channel)
     ga = scalar_width(g, mphi, majorana)
     N = Em.shape[0]
     mn_c = mn[..., :, None]
@@ -170,9 +193,18 @@ def alpha_table(Em, Ep, mn, g, mphi, Wf, *, majorana, non_resonant, phiphi):
     tm = _s_coords(Em[rows], mn_c, mphi, -1.0)
     spp = _s_coords(Ep[cols], mn_c, mphi, 1.0)
     smp = _s_coords(Em[cols], mn_c, mphi, 1.0)
-    tot = alpha_s(tm, tp, smp, spp, bc2(g), bc2(mphi), bc2(ga))
-    if not majorana:
-        tot = tot / 2.0
+    if channel in ("all", "s"):
+        tot = alpha_s(tm, tp, smp, spp, bc2(g), bc2(mphi), bc2(ga))
+        if not majorana:
+            tot = tot / 2.0
+    else:
+        tot = torch.zeros_like(tm)
+    if non_resonant and channel != "s":
+        from nusiprop_tpu_torch.models import kernels_nr
+
+        tot = tot + kernels_nr.alpha_nonresonant(
+            tm, tp, smp, spp, bc2(g), bc2(mphi), bc2(ga), majorana=majorana,
+            phiphi=phiphi, channel=channel)
     tot = tot / (2.0 * mn_c)
     res = torch.sum(Wf[:, None] * tot, dim=-2)
     out = torch.zeros(res.shape[:-1] + (N, N), dtype=res.dtype,

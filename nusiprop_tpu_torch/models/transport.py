@@ -1,29 +1,40 @@
-"""The transport engine (port of ``nusiprop_tpu.models.transport``,
-slices A and B).
+"""The transport engine (port of ``nusiprop_tpu.models.transport``).
 
 Implicit redshift march of the binned flux (nuSIprop.hpp:176-337): from
 zero flux at z = zmax down to z = 0; per z-node the per-bin 3x3 implicit
 system closes into one scalar recurrence over the descending energy bins.
-Two families are ported:
+Every march mode of ``Config`` runs:
 
-* non-resonant configs: native-f32 tables (kernels_nr_f32), free-
-  streaming preconditioned f32 rows (``_trisolve_f32_rows``) and the
-  fused kernel march (``ops/march_tri``);
-* s-channel configs (``non_resonant=False``): ``evolve_core`` with the
-  ``rank1`` (f64, the exactly rank-one alpha closed as a scalar affine
-  prefix), ``rank1_f32`` (free-streaming preconditioned f32 rows) and
-  ``loop`` (the reference-shaped descending-bin oracle) marches. The JAX
-  ``lax.associative_scan`` becomes the Hillis-Steele doubling of
-  ``march_ds._prefix_affine`` (``_prefix_affine``) and the JAX vmap a
-  leading batch axis.
+* ``trisolve_pallas``: native-f32 tables (kernels_nr_f32), free-streaming
+  preconditioned f32 rows (``_trisolve_f32_rows``) and the fused kernel
+  march (``ops/march_tri``); what ``"auto"`` picks for a non-resonant
+  config on a card;
+* ``trisolve_f32``: the same tables and rows through the eager float32
+  march ``_trisolve_f32_scan`` (per node a blocked Neumann-product solve
+  of the nilpotent triangular system);
+* ``trisolve``: float64 tables (the closed forms of ``kernels`` and
+  ``kernels_nr``, or the f32 quadrature alpha table with
+  ``table_dtype="f32"``) and per node one float64 triangular solve; what
+  ``"auto"`` picks for a non-resonant config off the card, with
+  ``table_dtype="f64"``, or with bins coarser than 0.05 decades;
+* ``loop``: the reference-shaped descending-bin oracle on the same
+  float64 tables;
+* ``rank1`` (s-channel configs only): the exactly rank-one alpha closed as
+  a scalar affine prefix, in float64. On CUDA tensors it runs through the
+  fused kernel march of ``ops/march_ds``, on CPU tensors through the eager
+  ``_z_step_rank1``;
+* ``rank1_f32``: its free-streaming preconditioned float32 form.
 
-Every other march mode and table branch raises ``NotImplementedError``
-naming the ROADMAP slice that will port it.
+The JAX ``lax.associative_scan`` becomes the Hillis-Steele doubling of
+``_prefix_affine`` and the JAX vmap a leading batch axis. The phi-phi
+channel (slice D of the port) raises ``NotImplementedError``.
 
 Shapes: every function takes ``PhysicsParams`` whose fields share one
 batch shape (``()`` or ``(B,)``); that shape leads every output.
 """
 
+import contextlib
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -85,59 +96,84 @@ def _table_health(tables, tau):
     return torch.stack([worst, bad, tau.to(torch.float64)], dim=-1)
 
 
-_NOT_PORTED = {
-    "trisolve": "slice C (f64 closed forms, ROADMAP queue 1 item 10)",
-    "loop": ("slice C (the non-resonant f64 alpha table, ROADMAP queue 1 "
-             "item 10)"),
-    "trisolve_f32": ("slice F (the non-fused f32 march _trisolve_f32_scan, "
-                     "ROADMAP queue 1 item 18)"),
-}
+_PP_SLICE = "phi-phi channel tables are slice D (ROADMAP queue 1 item 11)"
 
 
 def _resolve_march(cfg: Config, device) -> str:
     """The march this port runs for ``cfg`` on ``device``.
 
-    s-channel configs follow the JAX package off the TPU: ``"auto"``
-    resolves to ``"rank1"`` (true f64) on every device, and ``"rank1"``,
-    ``"rank1_f32"`` and ``"loop"`` run when asked. For non-resonant
-    configs ``"auto"`` resolves to the fused hand-written march
-    (``"trisolve_pallas"``) only where it is the right tool: tensors on
-    CUDA, f32 tables, and production-resolution bins (<= 0.05
-    decades/bin). Anything else raises ``NotImplementedError`` naming the
-    slice that will serve it — a config is never routed to a march that
-    cannot run it. An explicit ``"trisolve_pallas"`` runs anywhere (on CPU
-    tensors as its plain PyTorch twin)."""
+    Every explicit march runs where ``Config`` accepts it, on any device.
+    ``"auto"`` resolves as the JAX package does, with the card in the
+    TPU's place: s-channel configs take ``"rank1"`` (true f64) on every
+    device; non-resonant configs take the fused hand-written march
+    (``"trisolve_pallas"``) where it is the right tool, which is tensors
+    on CUDA, f32 tables, and production-resolution bins (<= 0.05
+    decades/bin, the f32 table build's error scales as bin-width^6), and
+    the f64 ``"trisolve"`` march anywhere else."""
     if cfg.march in ("rank1", "rank1_f32") and cfg.non_resonant:
         raise ValueError(
             f"march={cfg.march!r} is exact only for the s-channel-only "
             "kernel (non_resonant=False); use 'trisolve' or 'auto'")
-    if cfg.march == "trisolve_pallas":
-        return "trisolve_pallas"
-    if not cfg.non_resonant:
-        if cfg.march == "auto":
-            return "rank1"
-        if cfg.march in ("rank1", "rank1_f32", "loop"):
-            return cfg.march
-        raise NotImplementedError(
-            f"march={cfg.march!r} is not ported yet: "
-            f"{_NOT_PORTED['trisolve']}")
     if cfg.march != "auto":
-        raise NotImplementedError(
-            f"march={cfg.march!r} is not ported yet: {_NOT_PORTED[cfg.march]}")
-    if cfg.table_dtype == "f64":
-        raise NotImplementedError(
-            f"table_dtype='f64' needs the f64 trisolve march: "
-            f"{_NOT_PORTED['trisolve']}")
-    if (cfg.lEmax - cfg.lEmin) / cfg.N_bins_E > _MAX_DECADES_PER_BIN:
-        raise NotImplementedError(
-            "bins coarser than 0.05 decades keep the f64 closed-form "
-            f"tables and the f64 trisolve march: {_NOT_PORTED['trisolve']}")
-    if torch.device(device).type != "cuda":
-        raise NotImplementedError(
-            "march='auto' off CUDA resolves to the f64 trisolve march: "
-            f"{_NOT_PORTED['trisolve']}; pass march='trisolve_pallas' to "
-            "run the fused march's plain PyTorch twin on CPU")
-    return "trisolve_pallas"
+        return cfg.march
+    if not cfg.non_resonant:
+        return "rank1"
+    if (torch.device(device).type == "cuda" and cfg.table_dtype != "f64"
+            and (cfg.lEmax - cfg.lEmin) / cfg.N_bins_E
+            <= _MAX_DECADES_PER_BIN):
+        return "trisolve_pallas"
+    return "trisolve"
+
+
+def _rank1_fused(cfg: Config, device) -> bool:
+    """Whether the f64 ``rank1`` march of ``cfg`` goes through the fused
+    kernel march (``ops/march_ds``): tensors on CUDA and at most 8192
+    bins, the most that kernel's one block per point takes. Decided from
+    the device and ``cfg.N_bins_E`` alone, before any launch; above the
+    ceiling, and on CPU tensors, the eager ``_z_step_rank1`` marches. A
+    kernel that fails to build or to launch raises whatever this says."""
+    from nusiprop_tpu_torch.ops import march_ds
+
+    return (torch.device(device).type == "cuda"
+            and cfg.N_bins_E <= march_ds._MAX_BINS)
+
+
+def _channels(cfg: Config):
+    """Channel decomposition of the f64 table build, in its order of
+    summation (the JAX ``_channels``)."""
+    if not cfg.non_resonant:
+        return ("s",)
+    if cfg.phiphi:
+        raise NotImplementedError(_PP_SLICE)
+    return ("s", "t_u", "tu", "st")
+
+
+def _use_f32_alpha(cfg: Config, device) -> bool:
+    """Whether the f64 ``trisolve`` march takes the native-f32 quadrature
+    alpha table (kernels_nr_f32) instead of the f64 closed forms: only
+    when forced with ``table_dtype="f32"``. ``"auto"`` keeps the closed
+    forms under an explicit or resolved ``"trisolve"`` on every device
+    (what the JAX package does off the TPU)."""
+    if not cfg.non_resonant or cfg.table_dtype != "f32":
+        return False
+    return _resolve_march(cfg, device) == "trisolve"
+
+
+@contextlib.contextmanager
+def _exact_f32_matmul():
+    """float32 products at full precision inside the block, whatever the
+    process-wide TF32 switch says (the JAX march pins Precision.HIGHEST on
+    every product): ``torch.backends.cuda.matmul.allow_tf32`` is cleared
+    and put back, and left untouched where it is already off."""
+    mm = torch.backends.cuda.matmul
+    was_on = bool(mm.allow_tf32)
+    if was_on:
+        mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if was_on:
+            mm.allow_tf32 = True
 
 
 def _solve3(M, b):
@@ -396,58 +432,185 @@ def _rank1_f32_scan(xs, W, NE: int):
     return phi
 
 
-def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
-    """Kernel tables ``(tblG, tblAt, (A32, pref_A))`` of the fused march:
-    the float64 (..., NEXT) Gamma/alphaTilde tables of the native-f32
-    build and the NORMALIZED float32 (..., NEXT, NEXT) alpha table with
-    its float64 g^4 prefactor (JAX build_tables, use_f32_march branch).
+_SOLVE_BS = 128  # diagonal-block size of the nilpotent solver
 
-    Only the slice-A case is ported: Majorana with phi-phi off. The
-    s-channel marches build their factorized tables inside
-    ``evolve_core``.
+
+def _matvec(M, v):
+    return torch.matmul(M, v[..., None])[..., 0]
+
+
+def _nilpotent_solve(N, q):
+    """x = (I - N)^{-1} q for strictly-upper-triangular float32 N
+    (..., NE, NE) and q (..., NE), batched over the leading axes.
+
+    The march matrix is I minus a NILPOTENT non-negative N, so the
+    inverse is the terminating Neumann product (I-N)^{-1} =
+    prod_j (I + N^(2^j)): log-depth matmuls instead of a length-NE
+    substitution chain. The diagonal _SOLVE_BS blocks are inverted all at
+    once (one reshape and one diagonal take, then one stacked
+    product-doubling chain of two batched matmuls per level), and the
+    block back-substitution runs one row-block matvec against the blocks
+    already solved and one inverse apply per block. Every entry of N is
+    non-negative, so all Neumann sums are cancellation-free. Call it
+    under ``_exact_f32_matmul``."""
+    NE = q.shape[-1]
+    BS = min(_SOLVE_BS, NE)
+    NB = -(-NE // BS)
+    pad = NB * BS - NE
+    if pad:
+        N = torch.nn.functional.pad(N, (0, pad, 0, pad))
+        q = torch.nn.functional.pad(q, (0, pad))
+    lead = N.shape[:-2]
+
+    # stacked diagonal blocks (..., NB, BS, BS)
+    blocks = N.reshape(lead + (NB, BS, NB, BS))
+    Nd = torch.diagonal(blocks, dim1=-4, dim2=-2).movedim(-1, -3)
+
+    # (I - Nd)^{-1} by product doubling: after each level
+    # B = prod_{j<=J} (I + Nd^(2^j)) with P = Nd^(2^(J+1)); Nd^BS = 0 and
+    # 2*k_last >= BS covers every power < BS.
+    B = torch.eye(BS, dtype=N.dtype, device=N.device) + Nd
+    P = Nd
+    k = 1
+    while 2 * k < BS:
+        P = torch.matmul(P, P)
+        B = B + torch.matmul(P, B)
+        k *= 2
+
+    # back-substitution from the last block up: columns left of the
+    # diagonal block are zero and the block's own columns are served by B
+    solved = None  # x[(b+1)*BS:], the blocks solved so far
+    for b in range(NB - 1, -1, -1):
+        lo = b * BS
+        r = q[..., lo:lo + BS]
+        if solved is not None:
+            r = r + _matvec(N[..., lo:lo + BS, lo + BS:], solved)
+        xb = _matvec(B[..., b, :, :], r)
+        solved = xb if solved is None else torch.cat([xb, solved], dim=-1)
+    return solved[..., :NE] if pad else solved
+
+
+def _trisolve_f32_scan(xs, A32ext, W, NE: int):
+    """The native-f32 general-kernel march over the ``_trisolve_f32_rows``
+    rows, batched over the leading axis: per z-node the Sherman-Morrison
+    reduction, then one float32 triangular solve against the window of
+    the normalized alpha table ``A32ext`` (..., NEXT, NEXT) that the node
+    sees (a view, never copied out of the table by hand). ``W``: the three
+    PMNS weights (Python floats, rounded to float32 here). Returns the
+    preconditioned flux phi (..., 3, NE) f32. Its float32 products run at
+    full precision whatever the process-wide TF32 switch says."""
+    dev = xs[0].device
+    W32 = torch.tensor(W, dtype=torch.float32, device=dev)
+    W232 = W32 * W32
+    n_steps = xs[0].shape[-2]
+    phi = torch.zeros(xs[0].shape[:-2] + (3, NE), dtype=torch.float32,
+                      device=dev)
+    with _exact_f32_matmul():
+        for t in range(n_steps):
+            PG, PAt, CO, R0, S0, CS, PT = (x[..., t, :] for x in xs[:7])
+            off = n_steps - 1 - t            # window start, node i = off + 1
+            zdr_t = 1.0 + (PG[..., None] * W32 - PAt[..., None] * W232)
+            d = zdr_t - CO[..., None] * W232
+            w_d = W32 / d
+            wu = _sum3(W32 * w_d)
+            s = 1.0 + CO * wu
+            rv = phi.transpose(-1, -2) * R0[..., None] + S0[..., None]
+            rv_d = rv / d
+            wv = _sum3(W32 * rv_d)
+            V = rv_d - (CO * wv / s)[..., None] * w_d
+            U = w_d / s[..., None]
+            qv = wv / s                  # Wf . V under Sherman-Morrison
+
+            Awin = A32ext[..., off:off + NE, off:off + NE]
+            pu = PT * (wu / s)           # Wf . U, target-scaled
+            # the system matrix is I - Nmat with Nmat fused elementwise
+            # from Awin (row scale pu, col scale CS): strictly upper,
+            # non-negative, nilpotent; K y associates as Awin @ (CS y)
+            Nmat = pu[..., :, None] * (CS[..., None, :] * Awin)
+            y = _nilpotent_solve(Nmat, qv)
+            reg = PT * _matvec(Awin, CS * y)
+            phi = (V + reg[..., None] * U).transpose(-1, -2)
+    return phi
+
+
+def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
+    """Kernel tables ``(tblG, tblAt, tblA)`` of the trisolve and loop
+    marches (the JAX ``build_tables``), built channel by channel in one
+    order of summation (the sum's association is part of the result at
+    1 ulp):
+
+    * ``trisolve_pallas`` and ``trisolve_f32``: the float64 (..., NEXT)
+      Gamma/alphaTilde tables of the native-f32 build, plus for Dirac the
+      f64 s-t/s-u alphaTilde channel, and ``tblA = (A32, pref_A)``: the
+      NORMALIZED float32 (..., NEXT, NEXT) alpha table with its float64
+      g^4 prefactor;
+    * ``trisolve`` with ``table_dtype="f32"``: the same Gamma/alphaTilde
+      and the f32 quadrature alpha table with its prefactor applied, in
+      float64;
+    * ``trisolve`` and ``loop`` otherwise: the f64 closed forms, summed
+      over ``_channels(cfg)``.
+
+    The rank1 marches build their factorized tables inside
+    ``evolve_core`` and raise here.
     """
     from nusiprop_tpu_torch.models import kernels_nr_f32
 
-    march = _resolve_march(cfg, params.device)  # raises for unported ones
-    if march != "trisolve_pallas":
+    march = _resolve_march(cfg, params.device)
+    if march in ("rank1", "rank1_f32"):
         raise ValueError(
-            f"build_tables builds the fused trisolve march's tables; "
+            f"build_tables builds the trisolve and loop marches' tables; "
             f"march={march!r} builds its own inside evolve_core")
-    if cfg.phiphi or pp_tables is not None:
-        raise NotImplementedError(
-            "phi-phi channel tables are slice D (ROADMAP queue 1 item 11)")
-    if not cfg.majorana:
-        raise NotImplementedError(
-            "Dirac alphaTilde needs the f64 s-t/s-u 'st' channel program: "
-            "slice C (ROADMAP queue 1 item 10)")
+    if pp_tables is not None or (cfg.phiphi and cfg.non_resonant):
+        raise NotImplementedError(_PP_SLICE)
     dev = params.device
     gr = grids.build(cfg, dev)
     Wf = torch.as_tensor(mixing.pmns_sq(cfg.normal_ordering)[cfg.flav],
                          device=dev)
     mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
-    tblG, tblAt = kernels_nr_f32.nr_gamma_alphatilde_f32(
-        gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf,
-        majorana=cfg.majorana)
-    a32, pref = kernels_nr_f32.alpha_table_f32(
-        gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf,
-        majorana=cfg.majorana, raw=True)
-    return tblG, tblAt, (a32, pref)
+    args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+    kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
+              phiphi=cfg.phiphi)
+    use_f32_march = march in ("trisolve_f32", "trisolve_pallas")
+    use_f32_alpha = _use_f32_alpha(cfg, dev)
+
+    if use_f32_march or use_f32_alpha:
+        tblG, tblAt = kernels_nr_f32.nr_gamma_alphatilde_f32(
+            *args, majorana=cfg.majorana)
+        if not cfg.majorana:
+            # Dirac keeps the alphaTilde s-t/s-u interference in f64
+            tblAt = tblAt + kernels.alphatilde_table(*args, channel="st",
+                                                     **kw)
+        tblA = kernels_nr_f32.alpha_table_f32(
+            *args, majorana=cfg.majorana, raw=use_f32_march)
+        return tblG, tblAt, tblA
+
+    out = []
+    for fn in (kernels.gamma_table, kernels.alphatilde_table,
+               kernels.alpha_table):
+        acc = None
+        for ch in _channels(cfg):
+            t = fn(*args, channel=ch, **kw)
+            acc = t if acc is None else acc + t
+        out.append(acc)
+    return tuple(out)
 
 
 def evolve_core(params: PhysicsParams, cfg: Config, march: str,
-                pp_tables=None) -> EvolveResult:
-    """Batched s-channel evolve (params fields carry one leading batch
-    axis) through ``march`` in ("rank1", "rank1_f32", "loop"): the JAX
-    ``evolve_core`` with its vmap written out as that axis.
+                pp_tables=None, tables=None) -> EvolveResult:
+    """Batched evolve (params fields carry one leading batch axis) through
+    ``march``, any of ``Config``'s but ``"auto"`` and ``"trisolve_pallas"``
+    (``ops/march_tri`` runs that one): the JAX ``evolve_core`` with its
+    vmap written out as that axis, every march eager.
 
-    Tables: ``rank1_f32`` with table_dtype "auto"/"f32" takes the
-    native-f32 s-channel tables (kernels_f32); otherwise the f64 closed
-    forms (kernels), with the rank-one alpha factor rho (scaled by 2^100)
-    for rank1/rank1_f32 and the full alpha table for ``loop``.
+    Tables: ``trisolve``, ``trisolve_f32`` and ``loop`` take
+    ``build_tables``' output, or ``tables`` where the caller has it
+    already; ``rank1_f32`` with table_dtype "auto"/"f32" takes the
+    native-f32 s-channel tables (kernels_f32); ``rank1``, and
+    ``rank1_f32`` with f64 tables, the f64 s-channel closed forms with
+    the rank-one alpha factor rho (scaled by 2^100).
     """
     if pp_tables is not None:
-        raise NotImplementedError(
-            "phi-phi channel tables are slice D (ROADMAP queue 1 item 11)")
+        raise NotImplementedError(_PP_SLICE)
     dev = params.device
     gr = grids.build(cfg, dev)
     NE = cfg.N_bins_E
@@ -455,34 +618,54 @@ def evolve_core(params: PhysicsParams, cfg: Config, march: str,
     Wsq_np = mixing.pmns_sq(cfg.normal_ordering)
     Wsq = torch.as_tensor(Wsq_np, device=dev)
     Wf = Wsq[cfg.flav]
+    W_static = tuple(float(w) for w in Wsq_np[cfg.flav])
     mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
     norm_total = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
     dE_ext = gr.Emax_ext - gr.Emin_ext
-    tables = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+    s_args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
 
-    tblA = rho_ext = None
+    tblA = rho_ext = A32ext = pref_A = None
     tbl_prefs = (1.0, 1.0, _INV_RSCALE)
-    if march == "rank1_f32" and cfg.table_dtype in ("auto", "f32"):
-        tblG, tblAt, rho_ext, tbl_prefs = kernels_f32.s_channel_tables_f32(
-            *tables, majorana=cfg.majorana)
-    else:
-        kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
-                  phiphi=cfg.phiphi)
-        tblG = kernels.gamma_table(*tables, **kw)
-        tblAt = kernels.alphatilde_table(*tables, **kw)
-        if march == "loop":
-            tblA = kernels.alpha_table(*tables, **kw)
+    if march in ("rank1", "rank1_f32"):
+        if tables is not None:
+            raise ValueError("precomputed tables require march='trisolve', "
+                             "'trisolve_f32' or 'loop' (rank1 uses the "
+                             "factorized alpha)")
+        if cfg.non_resonant:
+            raise ValueError(f"march={march!r} needs non_resonant=False")
+        if march == "rank1_f32" and cfg.table_dtype in ("auto", "f32"):
+            tblG, tblAt, rho_ext, tbl_prefs = \
+                kernels_f32.s_channel_tables_f32(*s_args,
+                                                 majorana=cfg.majorana)
         else:
-            rho_ext = kernels.alpha_s_rho(*tables, majorana=cfg.majorana,
+            kw = dict(majorana=cfg.majorana, non_resonant=False,
+                      phiphi=False)
+            tblG = kernels.gamma_table(*s_args, **kw)
+            tblAt = kernels.alphatilde_table(*s_args, **kw)
+            rho_ext = kernels.alpha_s_rho(*s_args, majorana=cfg.majorana,
                                           scaled=True)
+    elif march in ("trisolve", "trisolve_f32", "loop"):
+        if tables is None:
+            tables = build_tables(
+                params, dataclasses.replace(cfg, march=march))
+        if march == "trisolve_f32":
+            tblG, tblAt, (A32ext, pref_A) = tables
+        else:
+            tblG, tblAt, tblA = tables
+    else:
+        raise ValueError(f"evolve_core does not run march={march!r}")
     inv_dE = 1.0 / (gr.Emax - gr.Emin)
 
     if march == "rank1_f32":
         xs, scale = _rank1_f32_rows(cfg, gr, params, norm_total, tblG, tblAt,
                                     rho_ext, dE_ext, prefs=tbl_prefs)
-        phi = _rank1_f32_scan(xs, tuple(float(w) for w in Wsq_np[cfg.flav]),
-                              NE)
+        phi = _rank1_f32_scan(xs, W_static, NE)
         # back to counts in f64 (the last node's preconditioner scale)
+        flux = phi.to(torch.float64) * scale[..., None, :]
+    elif march == "trisolve_f32":
+        xs, scale = _trisolve_f32_rows(cfg, gr, params, norm_total, tblG,
+                                       tblAt, pref_A)
+        phi = _trisolve_f32_scan(xs, A32ext, W_static, NE)
         flux = phi.to(torch.float64) * scale[..., None, :]
     else:
         steps_z = torch.flip(gr.z[1:], dims=(0,))  # z[Nz-1], ..., z[1]
@@ -495,20 +678,34 @@ def evolve_core(params: PhysicsParams, cfg: Config, march: str,
             if march == "rank1":
                 flux = _z_step_rank1(flux, i, lum, node, rho_ext, dE_ext,
                                      Wf, inv_dE, NE)
+            elif march == "trisolve":
+                flux = _z_step_trisolve(flux, i, lum, node, tblA, Wf,
+                                        inv_dE, NE)
             else:
                 flux = _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE)
 
     flux = flux * inv_dE                    # counts -> differential flux
-    # mass -> flavor basis, written out so every point sums in one order
-    flux_fla = torch.stack([
+    health = _table_health([tblG, tblAt, A32ext, tblA, rho_ext],
+                           _march_tau(gr, tblG, tbl_prefs[0]))
+    return _result(flux, gr, Wsq, mn, health)
+
+
+def _flavor_flux(flux, Wsq):
+    """Mass -> flavor basis, written out so every point sums in one
+    order. ``flux``: (..., 3, NE)."""
+    return torch.stack([
         Wsq[a, 0] * flux[..., 0, :] + Wsq[a, 1] * flux[..., 1, :]
         + Wsq[a, 2] * flux[..., 2, :] for a in range(3)], dim=-2)
-    health = _table_health([tblG, tblAt, tblA, rho_ext],
-                           _march_tau(gr, tblG, tbl_prefs[0]))
-    bc = lambda a: a.expand(params.mphi.shape + a.shape)
+
+
+def _result(flux, gr, Wsq, mn, health) -> EvolveResult:
+    """The EvolveResult of a batch from its mass-basis differential flux
+    (..., 3, NE); the grids are broadcast to the batch shape."""
+    bshape = flux.shape[:-2]
+    bc = lambda a: a.expand(bshape + a.shape)
     return EvolveResult(
-        flux=flux, flux_fla=flux_fla, E_nu=bc(gr.E_nu), Emin=bc(gr.Emin),
-        Emax=bc(gr.Emax), z=bc(gr.z), mn=mn, health=health)
+        flux=flux, flux_fla=_flavor_flux(flux, Wsq), E_nu=bc(gr.E_nu),
+        Emin=bc(gr.Emin), Emax=bc(gr.Emax), z=bc(gr.z), mn=mn, health=health)
 
 
 def _node_common(gr, i, NE, tblG, tblAt, Wf, inv_dE):
@@ -547,6 +744,29 @@ def _z_step_rank1(flux, i, lum, node, rho_ext, dE_ext, Wf, inv_dE, NE):
     return (V + (cum * d_w)[..., None] * U).transpose(-1, -2)
 
 
+def _z_step_trisolve(flux, i, lum, node, tblA, Wf, inv_dE, NE):
+    """General-kernel sweep as one scalar triangular solve per point.
+
+    With y_j = Wf . x_j and K[j,m] = alpha[j,m]/dE_m (strictly upper
+    triangular), the back-substitution closes into
+        (I - diag(pu) K) y = qv,   pu_j = Wf.U_j, qv_j = Wf.V_j,
+    a unit-diagonal upper-triangular NE x NE system: one blocked
+    triangular solve per z-node instead of an NE-step chain (LAPACK's
+    order of summation on CPU tensors, cuBLAS's on the card)."""
+    ndfac, pref, Zdr, coup = node
+    A_i = tblA[..., i - 1:i - 1 + NE, i - 1:i - 1 + NE] * ndfac
+    U, V = _node_affine(pref, Zdr, coup, lum, flux, Wf)
+    K = A_i * inv_dE
+    pu = _sum3(U * Wf)
+    qv = _sum3(V * Wf)
+    T = (torch.eye(NE, dtype=flux.dtype, device=flux.device)
+         - pu[..., :, None] * K)
+    y = torch.linalg.solve_triangular(T, qv[..., None], upper=True,
+                                      unitriangular=True)
+    reg = torch.matmul(K, y)[..., 0]
+    return (V + reg[..., None] * U).transpose(-1, -2)
+
+
 def _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE):
     """Reference-shaped descending-bin sweep (nuSIprop.hpp:266-315), the
     cross-validation oracle: per bin the regeneration feed from the
@@ -573,14 +793,20 @@ def _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE):
 def evolve_batched(params: PhysicsParams, cfg: Config,
                    pp_tables=None) -> EvolveResult:
     """Evolve a batch of points (fields with one leading batch axis)
-    through the march ``_resolve_march`` picks: the fused kernel march
-    (``ops/march_tri``) or the s-channel ``evolve_core``."""
+    through the march ``_resolve_march`` picks. The two fused kernel
+    marches take theirs: ``trisolve_pallas`` through ``ops/march_tri``,
+    and ``rank1`` through ``ops/march_ds`` where ``_rank1_fused`` says so
+    (CUDA tensors, at most 8192 bins); ``evolve_core`` runs the rest."""
     march = _resolve_march(cfg, params.device)
     if march == "trisolve_pallas":
         from nusiprop_tpu_torch.ops import march_tri
 
         return march_tri.evolve_trisolve_fused(params, cfg,
                                                pp_tables=pp_tables)
+    if march == "rank1" and _rank1_fused(cfg, params.device):
+        from nusiprop_tpu_torch.ops import march_ds
+
+        return march_ds.evolve_rank1_fused(params, cfg)
     return evolve_core(params, cfg, march, pp_tables=pp_tables)
 
 

@@ -20,7 +20,9 @@ whole march in float64 and has no double-single arithmetic:
   CUDA tensors and runs the twin on CPU tensors only, counting launches.
   The kernel composes the same affine maps hierarchically (thread, warp,
   block), so it agrees with the twin to float64 round-off, not bitwise;
-* ``evolve_pallas`` (the JAX name) chains the three and ``_postprocess``.
+* ``evolve_rank1_fused`` chains the three into a whole ``EvolveResult``
+  (the route of ``march="rank1"`` on CUDA tensors); ``evolve_pallas``
+  (the JAX name) is its flavour flux.
 
 Physics identical to transport's ``rank1`` march (nuSIprop.hpp:257-315
 with the alpha_cum fast path); the algebra differs (adjugate instead of
@@ -53,7 +55,11 @@ def prepare_rank1_inputs(params: PhysicsParams, cfg: Config):
     (params fields (B,)). Returns ``(rows, meta)``: ``rows[name]`` is
     float64, contiguous, in processing order, (B, Nz-1, NE) for every row
     but DW, which is (Nz-1, NE) and shared by all points; ``meta`` holds
-    NE, n_steps and the three PMNS weights W of the flavour ``cfg.flav``."""
+    NE, n_steps, the three PMNS weights W of the flavour ``cfg.flav``, the
+    mass eigenvalues ``mn`` (B, 3) and ``health``, the (B, 3) health
+    signal of the tables built here (transport._table_health; a ratio, so
+    the unscaled rho gives the same worst entry as the scaled one of
+    ``transport.evolve_core``)."""
     if cfg.non_resonant:
         raise ValueError("the fused rank1 march implements the "
                          "s-channel-only configuration (rank1)")
@@ -102,7 +108,10 @@ def prepare_rank1_inputs(params: PhysicsParams, cfg: Config):
     out = {name: torch.flip(arr if name == "DW" else arr.expand(shape),
                             dims=(-1,)).contiguous()
            for name, arr in rows.items()}
-    meta = dict(NE=NE, n_steps=Nz - 1, W=tuple(float(w) for w in W))
+    health = transport._table_health([tblG, tblAt, rho],
+                                     transport._march_tau(gr, tblG))
+    meta = dict(NE=NE, n_steps=Nz - 1, W=tuple(float(w) for w in W),
+                mn=mn, health=health)
     return out, meta
 
 
@@ -249,17 +258,20 @@ def march_ds_batched(rows, meta):
 march_ds_batched.launches = 0
 
 
+def _mass_flux(flux, gr):
+    """(..., 3, NE) processing-order flux counts -> the differential flux
+    in ascending bins."""
+    return torch.flip(flux, dims=(-1,)) / (gr.Emax - gr.Emin)
+
+
 def _postprocess(flux, cfg: Config):
     """(..., 3, NE) processing-order flux counts -> (..., 3, NE) flavour
     flux: flip back to ascending bins, divide by the bin width and rotate
     by |U|^2 (written out, one summation order everywhere)."""
     gr = grids.build(cfg, flux.device)
-    flux = torch.flip(flux, dims=(-1,)) / (gr.Emax - gr.Emin)
     Wsq = torch.as_tensor(mixing.pmns_sq(cfg.normal_ordering),
                           device=flux.device)
-    return torch.stack([
-        Wsq[a, 0] * flux[..., 0, :] + Wsq[a, 1] * flux[..., 1, :]
-        + Wsq[a, 2] * flux[..., 2, :] for a in range(3)], dim=-2)
+    return transport._flavor_flux(_mass_flux(flux, gr), Wsq)
 
 
 def march_ds(params: PhysicsParams, cfg: Config):
@@ -271,11 +283,22 @@ def march_ds(params: PhysicsParams, cfg: Config):
     return _postprocess(flux, cfg)[0]
 
 
-def evolve_pallas(params: PhysicsParams, cfg: Config):
-    """Batched evolve through the fused march: on CUDA tensors it
-    launches the hand-written CUDA kernel (``csrc/march_ds.cu``, the
-    port of the JAX Pallas kernel of this name's module), on CPU tensors
-    its plain twin. params fields carry a leading batch axis. Returns
-    flux_fla (B, 3, NE) float64."""
+def evolve_rank1_fused(params: PhysicsParams, cfg: Config):
+    """Batched f64 ``rank1`` evolve through the fused march, as a whole
+    ``EvolveResult``: the route ``transport.evolve_batched`` takes for
+    ``march="rank1"`` on CUDA tensors. On CUDA tensors it launches the
+    hand-written CUDA kernel (``csrc/march_ds.cu``) or raises; on CPU
+    tensors it runs the plain twin. params fields carry a leading batch
+    axis."""
     rows, meta = prepare_rank1_inputs(params, cfg)
-    return _postprocess(march_ds_batched(rows, meta), cfg)
+    gr = grids.build(cfg, params.device)
+    flux = _mass_flux(march_ds_batched(rows, meta), gr)
+    Wsq = torch.as_tensor(mixing.pmns_sq(cfg.normal_ordering),
+                          device=params.device)
+    return transport._result(flux, gr, Wsq, meta["mn"], meta["health"])
+
+
+def evolve_pallas(params: PhysicsParams, cfg: Config):
+    """The flavour flux of ``evolve_rank1_fused`` (the JAX name of the
+    fused path): flux_fla (B, 3, NE) float64."""
+    return evolve_rank1_fused(params, cfg).flux_fla

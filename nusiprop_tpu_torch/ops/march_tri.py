@@ -165,7 +165,6 @@ def march_fused_with_tables(params: PhysicsParams, tables, cfg: Config):
     Wsq_np = mixing.pmns_sq(cfg.normal_ordering)
     W_static = tuple(float(w) for w in Wsq_np[cfg.flav])
     inv_dE = 1.0 / (gr.Emax - gr.Emin)
-    B = params.mphi.shape[0]
 
     norm_total = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
     rows, scale = transport._trisolve_f32_rows(
@@ -173,15 +172,8 @@ def march_fused_with_tables(params: PhysicsParams, tables, cfg: Config):
     phi = march_tri(A32.contiguous(), rows[:7], W_static, NE, Nz)
 
     flux = phi.to(torch.float64) * scale[:, None, :] * inv_dE
-    # mass -> flavor basis, written out so every point sums in one order
     Wsq = torch.as_tensor(Wsq_np, device=dev)
-    flux_fla = torch.stack([
-        Wsq[a, 0] * flux[:, 0] + Wsq[a, 1] * flux[:, 1]
-        + Wsq[a, 2] * flux[:, 2] for a in range(3)], dim=1)
     mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
     health = transport._table_health(
         [tblG, tblAt, A32], transport._march_tau(gr, tblG))
-    bc = lambda a: a.expand((B,) + a.shape)
-    return transport.EvolveResult(
-        flux=flux, flux_fla=flux_fla, E_nu=bc(gr.E_nu), Emin=bc(gr.Emin),
-        Emax=bc(gr.Emax), z=bc(gr.z), mn=mn, health=health)
+    return transport._result(flux, gr, Wsq, mn, health)

@@ -38,12 +38,15 @@ def grid_scan(params: PhysicsParams, cfg, chunk_size: int | None = None,
     """Evolve a batch of parameter points (fields with one leading batch
     axis); returns an EvolveResult whose fields carry that axis.
 
-    Every march runs through ``transport.evolve_batched``: the fused
-    kernel march for non-resonant configs, the batched ``evolve_core``
-    (rank1, rank1_f32, loop) for s-channel configs; it raises for configs
-    this port does not run yet. ``chunk_size=k`` builds the tables and
-    marches k points at a time, which bounds the peak memory of the eager
-    table build at large batch (the result equals the unchunked one)."""
+    Every march runs through ``transport.evolve_batched``: the two fused
+    kernel marches on the card, the batched ``evolve_core`` for the rest;
+    it raises for the phi-phi channel, which this port does not run yet.
+    ``chunk_size=k`` builds the tables and marches k points at a time,
+    which bounds the peak memory of the eager table build at large batch
+    (the float64 closed-form build most of all). The result equals the
+    unchunked one bitwise where the march is elementwise over the batch,
+    and to round-off where a batched product or triangular solve sums in
+    an order that depends on the batch size (trisolve, trisolve_f32)."""
     batch = params.mphi.shape[0]
     if not chunk_size or chunk_size >= batch:
         return transport.evolve_batched(params, cfg, pp_tables=pp_tables)

@@ -142,3 +142,56 @@ def test_march_ds_kernel_matches_plain_on_card(n_bins, batch):
     gate = a.abs() > a.abs().amax(dim=(-1, -2), keepdim=True) * 1e-25
     rel = float(((b - a).abs()[gate] / a.abs()[gate]).max())
     assert rel < 1e-10, rel
+
+
+@pytest.mark.parametrize("entry", ["grid_scan", "grid_scan_chunked",
+                                   "Evolver"])
+def test_rank1_route_launches_k2_on_card(entry):
+    """march="rank1" (and "auto" on an s-channel config) on CUDA tensors
+    goes through the fused kernel march: one launch per chunk, and the
+    whole EvolveResult agrees with the eager march on the card to f64
+    round-off."""
+    dev = _card()
+    kw = dict(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+              non_resonant=False, phiphi=False)
+    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    eager = transport.evolve_core(params, Config(**kw), "rank1")
+    before = march_ds.march_ds_batched.launches
+    if entry == "Evolver":
+        ev = nt.Evolver(mphi=MPHI[1], g=1e-2, mntot=MNTOT, si=2.0, norm=6.0,
+                        device=dev, **kw).evolve()
+        assert march_ds.march_ds_batched.launches == before + 1
+        got, ref = ev._result.flux_fla[None], eager.flux_fla[1:2]
+    else:
+        chunk = 2 if entry == "grid_scan_chunked" else None
+        res = nt.grid_scan(params, Config(**kw, march="rank1"),
+                           chunk_size=chunk)
+        assert march_ds.march_ds_batched.launches == before + (2 if chunk
+                                                               else 1)
+        assert torch.equal(res.health[:, 1:], eager.health[:, 1:])
+        got, ref = res.flux_fla, eager.flux_fla
+    a, b = ref.double(), got.double()
+    gate = a.abs() > a.abs().amax(dim=(-1, -2), keepdim=True) * 1e-25
+    assert float(((b - a).abs()[gate] / a.abs()[gate]).max()) < 1e-10
+
+
+@pytest.mark.parametrize("majorana", [True, False], ids=["maj", "dirac"])
+def test_trisolve_f32_matches_kernel_on_card(majorana):
+    """The eager float32 march (cuBLAS products, TF32 switched on around
+    it to show it does not care) against the fused kernel march on the
+    same tables: < 5e-5 gated."""
+    dev = _card()
+    kw = dict(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+              non_resonant=True, phiphi=False, majorana=majorana)
+    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    k1 = nt.grid_scan(params, Config(**kw))
+    was = bool(torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        f32 = nt.grid_scan(params, Config(**kw, march="trisolve_f32"))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert _gated_rel(k1.flux_fla, f32.flux_fla) < 5e-5

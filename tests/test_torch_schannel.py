@@ -178,12 +178,18 @@ def test_nonresonant_channels_raise():
 
     args = (gr.Emin_ext, gr.Emax_ext, masses.mass_spectrum(p.mntot, True),
             p.g, p.mphi, torch.as_tensor(jmixing.pmns_sq(True)[2]))
-    with pytest.raises(NotImplementedError, match="slice C"):
+    # the non-resonant channels are served; phi-phi names its slice
+    nr = kernels.gamma_table(*args, majorana=True, non_resonant=True,
+                             phiphi=False)
+    s_only = kernels.gamma_table(*args, majorana=True, non_resonant=False,
+                                 phiphi=False)
+    assert nr.shape == s_only.shape and bool((nr > s_only).any())
+    for kw in (dict(phiphi=True), dict(phiphi=False, channel="pp")):
+        with pytest.raises(NotImplementedError, match="slice D"):
+            kernels.alpha_table(*args, majorana=True, non_resonant=True, **kw)
+    with pytest.raises(ValueError, match="unknown channel"):
         kernels.gamma_table(*args, majorana=True, non_resonant=True,
-                            phiphi=False)
-    with pytest.raises(NotImplementedError, match="slice D"):
-        kernels.alpha_table(*args, majorana=True, non_resonant=True,
-                            phiphi=True)
+                            phiphi=False, channel="u")
 
 
 # ---------------------------------------------------------------------------
@@ -375,12 +381,64 @@ def test_resolve_march_serves_s_channel():
     for march in ("rank1", "rank1_f32", "loop"):
         assert transport._resolve_march(
             dataclasses.replace(cfg, march=march), "cpu") == march
-    with pytest.raises(NotImplementedError, match="slice C"):
-        transport._resolve_march(dataclasses.replace(cfg, march="trisolve"),
-                                 "cpu")
+    for march in ("trisolve", "loop"):
+        assert transport._resolve_march(
+            dataclasses.replace(cfg, march=march), "cuda") == march
     with pytest.raises(ValueError, match="builds its own"):
         transport.build_tables(
             nt.PhysicsParams.create(5e6, 1e-6, MNTOT, 2.0, device="cpu"), cfg)
+
+
+def test_rank1_route_is_decided_from_the_bin_count_alone(monkeypatch):
+    """The f64 rank1 march on CPU tensors is the eager march, unchanged;
+    on CUDA tensors it is the fused kernel march up to its ceiling of
+    8192 bins and the eager march above, a rule on the device and
+    ``N_bins_E`` that is settled before anything is built or launched."""
+    from nusiprop_tpu_torch.ops import march_ds
+
+    cfg = Config(N_bins_E=100, **S_CFG)
+    at = lambda n: dataclasses.replace(cfg, N_bins_E=n)
+    assert march_ds._MAX_BINS == 8192
+    assert not transport._rank1_fused(cfg, "cpu")
+    assert not transport._rank1_fused(at(9000), "cpu")
+    assert transport._rank1_fused(cfg, "cuda")
+    assert transport._rank1_fused(at(8192), "cuda")
+    assert not transport._rank1_fused(at(8193), "cuda")
+
+    # CPU tensors never reach the fused route: evolve_batched is
+    # evolve_core's eager march, bitwise
+    def boom(*a, **k):
+        raise AssertionError("the fused route ran on CPU tensors")
+
+    monkeypatch.setattr(march_ds, "evolve_rank1_fused", boom)
+    p = nt.stack_params(CASES["powerlaw"][1], device="cpu")
+    c = Config(**dict(CASES["powerlaw"][0], march="rank1"))
+    a = transport.evolve_batched(p, c)
+    b = transport.evolve_core(p, c, "rank1")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_rank1_fused_route_result_on_cpu_twin():
+    """The whole EvolveResult of the fused route (run here on its plain
+    twin) against the eager march: flux to f64 round-off (adjugate vs
+    Sherman-Morrison), the grids bitwise, the health's count and depth."""
+    from nusiprop_tpu_torch.ops import march_ds
+
+    p = nt.stack_params(CASES["powerlaw"][1], device="cpu")
+    c = Config(**dict(CASES["powerlaw"][0], march="rank1"))
+    fused = march_ds.evolve_rank1_fused(p, c)
+    eager = transport.evolve_core(p, c, "rank1")
+    for name in ("flux", "flux_fla"):
+        assert _gated_rel(getattr(eager, name).numpy(),
+                          getattr(fused, name).numpy(), 1e-25) < 1e-10
+    for name in ("E_nu", "Emin", "Emax", "z", "mn"):
+        assert torch.equal(getattr(fused, name), getattr(eager, name))
+    assert torch.equal(fused.health[:, 1:], eager.health[:, 1:])
+    np.testing.assert_allclose(fused.health[:, 0].numpy(),
+                               eager.health[:, 0].numpy(), rtol=1e-12,
+                               atol=1e-300)
+    assert torch.equal(march_ds.evolve_pallas(p, c), fused.flux_fla)
 
 
 POLY = (1.0, -0.3, 0.05)

@@ -111,37 +111,54 @@ def test_grid_scan_chunked_equals_unchunked(runs, chunk):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw,device", [
-    (dict(), "cpu"),
-    (dict(N_bins_E=48, lEmin=4.0, lEmax=9.0), "cuda"),
-    (dict(table_dtype="f64"), "cuda"),
-    (dict(non_resonant=False, march="trisolve"), "cuda"),
-    (dict(march="trisolve"), "cuda"),
-    (dict(march="trisolve_f32"), "cuda"),
+@pytest.mark.parametrize("kw,device,march", [
+    (dict(), "cpu", "trisolve"),
+    (dict(N_bins_E=48, lEmin=4.0, lEmax=9.0), "cuda", "trisolve"),
+    (dict(table_dtype="f64"), "cuda", "trisolve"),
+    (dict(non_resonant=False, march="trisolve"), "cuda", "trisolve"),
+    (dict(march="trisolve"), "cuda", "trisolve"),
+    (dict(march="trisolve_f32"), "cuda", "trisolve_f32"),
+    (dict(march="loop"), "cpu", "loop"),
+    (dict(table_dtype="f32"), "cpu", "trisolve"),
+    (dict(table_dtype="f32"), "cuda", "trisolve_pallas"),
 ], ids=["cpu", "coarse-bins", "f64-tables", "s-channel", "trisolve",
-        "trisolve_f32"])
-def test_resolve_march_refuses_unserved_configs(kw, device):
+        "trisolve_f32", "loop", "f32-tables-cpu", "f32-tables-cuda"])
+def test_resolve_march_refuses_unserved_configs(kw, device, march):
+    """Every config this test once saw refused resolves to a march that
+    runs: "auto" on a non-resonant config keeps the fused march for CUDA
+    tensors, f32 tables and production bins, and takes the f64 trisolve
+    march anywhere else; an explicit march is taken as given."""
     base = dict(N_bins_E=500, lEmin=4.0, lEmax=9.0, phiphi=False)
     cfg = Config(**dict(base, **kw))
-    with pytest.raises(NotImplementedError, match="slice"):
-        transport._resolve_march(cfg, device)
+    assert transport._resolve_march(cfg, device) == march
+    use_f32 = transport._use_f32_alpha(cfg, device)
+    assert use_f32 == (march == "trisolve" and cfg.table_dtype == "f32")
 
 
 @pytest.mark.parametrize("entry", ["grid_scan", "grid_scan_chunked",
                                    "Evolver"])
 def test_entry_points_refuse_auto_march_on_cpu(entry):
-    """The march is resolved once, in build_tables; every entry point
-    still refuses what it cannot run, before any march."""
-    kw = dict(N_bins_E=48, lEmin=4.0, lEmax=9.0, phiphi=False)
+    """march="auto" on a non-resonant config with CPU tensors is the f64
+    trisolve march at every entry point (what the JAX package runs off
+    the TPU): no fused march is involved, and the flux is the explicit
+    "trisolve" one."""
+    kw = dict(N_bins_E=24, lEmin=12.0, lEmax=14.0, phiphi=False,
+              source="powerlaw")
     before = tmt.march_tri.launches
-    with pytest.raises(NotImplementedError, match="slice C"):
-        if entry == "Evolver":
-            nt.Evolver(mphi=1e6, g=1e-3, mntot=MNTOT, si=2.0, device="cpu",
-                       **kw).evolve()
-        else:
-            p = nt.param_grid(MPHI, [1e-3], mntot=MNTOT, si=2.0, device="cpu")
-            nt.grid_scan(p, Config(**kw),
-                         chunk_size=1 if entry == "grid_scan_chunked" else None)
+    p = nt.param_grid(MPHI[:2], [1e-2], mntot=0.1, si=2.5, device="cpu")
+    ref = nt.grid_scan(p, Config(**kw, march="trisolve"))
+    if entry == "Evolver":
+        ev = nt.Evolver(mphi=MPHI[1], g=1e-2, mntot=0.1, si=2.5, device="cpu",
+                        **kw).evolve()
+        rel = _gated_rel(ref.flux_fla[1:].numpy(), ev.get_flux_fla()[None])
+        assert rel.max() < 1e-11          # batch 1 vs 2: BLAS's order
+    else:
+        chunk = 1 if entry == "grid_scan_chunked" else None
+        res = nt.grid_scan(p, Config(**kw), chunk_size=chunk)
+        rel = _gated_rel(ref.flux_fla.numpy(), res.flux_fla.numpy())
+        assert rel.max() < 1e-11
+        if chunk is None:
+            assert torch.equal(res.flux, ref.flux)
     assert tmt.march_tri.launches == before
 
 
@@ -166,10 +183,14 @@ def test_unported_options_raise():
         ev.audit()
     with pytest.warns(UserWarning):
         assert (ev.get_flux() == 0).all()
-    dirac = Config(**dict(CFG, majorana=False))
-    with pytest.raises(NotImplementedError, match="slice C"):
-        transport.build_tables(
-            nt.PhysicsParams.create(1e6, 1e-3, 0.1, 2.0, device="cpu"), dirac)
+    p = nt.param_grid([1e6], [1e-3], mntot=0.1, si=2.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice D"):
+        transport.build_tables(p, Config(**dict(CFG, phiphi=True)))
+    # Dirac on the fused path: the f64 s-t channel joins alphaTilde
+    maj = transport.build_tables(p, Config(**CFG))
+    dirac = transport.build_tables(p, Config(**dict(CFG, majorana=False)))
+    assert dirac[1].dtype == torch.float64 and dirac[2][0].dtype == torch.float32
+    assert dirac[1].shape == maj[1].shape and not torch.equal(dirac[1], maj[1])
 
 
 def test_registered_source_takes_the_per_node_path():
