@@ -41,7 +41,8 @@ phase printing one JSON line:
               batch 32 through grid_scan in chunks of 16: finite flux, warm
               wall, the table build's share of it, peak memory; its
               difference from the K1 path is printed and not gated (the
-              f64 closed forms are noise below the resonance)
+              f64 closed forms are noise below the resonance); and once
+              at batch 64 in one chunk, for the peak memory of a chunk of 64
   schannel_evolver  the golden config (test.py's: mphi 5e6, g 1e-6, 100
               bins over lE in [4, 9], dsnb, Majorana, NO, flav 2) through
               Evolver with march "auto" (rank1, f64: K2's route on the
@@ -54,7 +55,8 @@ phase printing one JSON line:
               REPS runs) and z-steps/s at the median
   rank1_route  grid_scan(rank1) at that shape launches K2; its flux
               against the eager rank1 march on the card (evolve_core;
-              masked rel < 1e-10); warm walls of both in this one call
+              masked rel < 1e-10); warm walls of both in this one call;
+              at 8193 bins, above K2's ceiling, the route raises
   march_ds    evolve_pallas at that batch-1024 shape (the path of K2):
               its launches, its flux against the eager rank1 march's; K2
               against its plain twin on the full batch-1024 rows; wall
@@ -81,9 +83,9 @@ only the band of its table that the march touches, K2 reads DW as one
 row shared by every point) over 3.35 TB/s and
 its operations over the card's peak for their type: 67 TFLOP/s float32
 (K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
-outside the tensor cores. K1's operations form one dependency chain per
-point, so its operation time is the larger of that rate and the chain's
-latency (``k1_bound``).
+outside the tensor cores. K1's entry also carries ``design_chain_ms``, the
+serial chain of its present design at assumed latencies: a diagnostic
+beside the bound, not part of it (``k1_bound``).
 """
 
 import json
@@ -113,13 +115,14 @@ F64_FLOPS = 34e12
 # float32 operations per bin and node outside K1's row dot (counted from
 # csrc/march_tri.cu: two Sherman-Morrison passes, c1/c2, cy, x)
 K1_ELEM_FLOPS = 105
-# K1's dependency chain: a point's back-substitution is (Nz-1)*NE steps,
-# each waiting for the step before it through at least one warp shuffle
-# (a bin's cy reaches the lanes that hold the rows above it) and one fused
-# multiply-add (p += A*cy, or cy = c1 + c2*p). Assumed latencies on
-# Hopper: 24 cycles for shfl.sync, 4 cycles for a dependent FFMA, at the
-# H100 SXM's 1.98 GHz boost clock. No batch size shortens the chain: the
-# points run side by side, each with its own.
+# The serial chain of K1's present design, a diagnostic and no bound: warp
+# 0 back-substitutes a point's (Nz-1)*NE bins one after another, each
+# step waiting for the one before it through one warp shuffle and one
+# fused multiply-add. The function itself needs no such chain (a unit
+# triangular system also solves in logarithmic depth, as
+# transport._nilpotent_solve does). The latencies are assumed, not
+# measured: 24 cycles for shfl.sync and 4 for a dependent FFMA at the H100
+# SXM's 1.98 GHz boost clock.
 SHFL_CYCLES = 24
 FMA_CYCLES = 4
 SM_CLOCK_HZ = 1.98e9
@@ -348,6 +351,7 @@ def main():
                                   cmp_d["flux_rel_vs_plain"]),
         ms=cmp128["kernel_ms"], plain_ms=cmp128["plain_ms"], **b1,
         share_of_bound=b1["bound_ms"] / cmp128["kernel_ms"],
+        design_chain_share=b1["design_chain_ms"] / cmp128["kernel_ms"],
         ms_batch1=cmp1["kernel_ms"], ms_batch8=cmp500["kernel_ms"],
         library_ms=None, design=design,
         shape="batch 128, NE 500, Nz 79 (the grid_scan path's own); "
@@ -367,7 +371,8 @@ def trisolve_f64_phase(dev, card, params, k1_res):
     """The f64 closed-form engine on the card: the clean point through
     Evolver(march="trisolve") against the K1 path (gated), then the
     production config with f64 tables at batch 32 in chunks of 16 (its
-    difference from the K1 path ``k1_res`` is printed, not gated).
+    difference from the K1 path ``k1_res`` is printed, not gated) and once
+    at batch 64 in one chunk, for its peak memory.
     Returns the K1 launches of the clean point's partner."""
     import torch
 
@@ -411,6 +416,18 @@ def trisolve_f64_phase(dev, card, params, k1_res):
         transport.build_tables(p32.map(lambda x: x[s:s + chunk]), cfg64)
     torch.cuda.synchronize()
     t_tables = time.perf_counter() - t0
+    # one larger chunk, for the memory a user's chunk_size costs: 64 points
+    # at once (one run, so its wall includes first-use allocations)
+    p64 = params.map(lambda x: x[::2].contiguous())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res64 = grid_scan(p64, cfg64, chunk_size=64)
+    torch.cuda.synchronize()
+    t_chunk64 = time.perf_counter() - t0
+    peak64 = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(res64.flux_fla).all()),
+          "f64-table flux finite in one chunk of 64")
     ref = k1_res.flux_fla[::4]
     scale = ref.abs().amax(dim=(-1, -2), keepdim=True)
     gate = ref.abs() > scale * GATE_FLOOR
@@ -422,6 +439,9 @@ def trisolve_f64_phase(dev, card, params, k1_res):
          tables_s=t_tables, tables_share=t_tables / t_evolve,
          z_steps_per_s=B * (Nz - 1) / t_evolve, peak_mem_gb=peak / 1e9,
          peak_mem_gb_per_point=peak / 1e9 / chunk,
+         chunk64=dict(batch=64, chunk_size=64, first_evolve_s=t_chunk64,
+                      peak_mem_gb=peak64 / 1e9,
+                      peak_mem_gb_per_point=peak64 / 1e9 / 64),
          ungated_rel_vs_k1_path=dict(max=float(rel.max()),
                                      median=float(rel.median())),
          worst_rel_neg=float(res.health[:, 0].min()),
@@ -489,6 +509,8 @@ def schannel_phases(dev, card):
          rank1_f32_vs_rank1_gated_rel=f32_rel, card=card)
 
     # ---- the rank1 route (K2) against the eager rank1 march on the card ----
+    p2 = param_grid([1e5, 1e6], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                    device=dev)
     c_rank1 = Config(**dict(SCHANNEL, march="rank1"))
     eager = transport.evolve_core(params, c_rank1, "rank1")   # warm-up, kept
     route_rel = masked_rel(eager.flux_fla, runs["rank1"][0].flux_fla)
@@ -499,9 +521,20 @@ def schannel_phases(dev, card):
           "the route's health counts and depth are the eager march's")
     t_eager = wall_times(
         lambda: transport.evolve_core(params, c_rank1, "rank1"))
+    # above K2's 8192 bins every entry of the route refuses, before a launch
+    c_over = Config(**dict(SCHANNEL, N_bins_E=8193, march="rank1"))
+    refused = 0
+    for entry in (lambda: grid_scan(p2, c_over),
+                  lambda: mds.evolve_pallas(p2, c_over)):
+        mds.march_ds_batched.launches = 0
+        try:
+            entry()
+        except ValueError as e:
+            refused += "8192" in str(e) and mds.march_ds_batched.launches == 0
+    check(refused == 2, "rank1 above 8192 bins is refused on the card")
     emit(phase="rank1_route", batch=B, NE=cfg.N_bins_E, reps=REPS,
          kernel_launches=n_gs, evolver_kernel_launches=n_ev,
-         flux_fla_rel_vs_eager=route_rel, route_s=runs["rank1"][1],
+         refused_above_8192_bins=refused, flux_fla_rel_vs_eager=route_rel, route_s=runs["rank1"][1],
          eager_s=t_eager, golden_max_rel=golden_rel, energy_drift=drift,
          card=card)
 
@@ -534,8 +567,6 @@ def schannel_phases(dev, card):
 
     # ---- no bin ceiling: 2048 bins, batch 2 ----
     cfg_big = Config(**dict(SCHANNEL, N_bins_E=2048))
-    p2 = param_grid([1e5, 1e6], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
-                    device=dev)
     rows2, meta2 = mds.prepare_rank1_inputs(p2, cfg_big)
     cmp2 = compare_ds(mds, rows2, meta2)
     design2 = mds.kernel_config(2048)
@@ -572,32 +603,30 @@ def schannel_phases(dev, card):
 
 
 def k1_bound(B, NE, Nz):
-    """K1's least time, the largest of three: the bytes (the part of the
-    table it reads, seven rows and phi once each) over the memory rate;
-    the live triangle's multiply-adds plus the per-bin algebra over the
-    float32 rate; and the dependency chain of one point's
-    back-substitution, (Nz-1)*NE steps of one shuffle and one fused
-    multiply-add each (the latencies assumed at SHFL_CYCLES). The table is
-    strictly upper triangular and the march reads row r at columns r+1 ..
-    off+NE-1 only: over all nodes that is the band of NE-1 columns above
-    the diagonal, NEXT(NE-1) - NE(NE-1)/2 entries. ``bound_by`` says
-    "bytes" or "operations"; ``operations_by`` says whether the operations'
-    time is their rate's or their chain's."""
+    """K1's least time, the larger of two: the bytes (the part of the
+    table it reads, seven rows and phi once each) over the memory rate,
+    and the live triangle's multiply-adds plus the per-bin algebra over
+    the float32 rate. The table is strictly upper triangular and the
+    march reads row r at columns r+1 .. off+NE-1 only: over all nodes that
+    is the band of NE-1 columns above the diagonal,
+    NEXT(NE-1) - NE(NE-1)/2 entries. Beside the bound stands
+    ``design_chain_ms``, the time of the present design's serial
+    back-substitution at the assumed latencies (SHFL_CYCLES): what this
+    layout cannot go under, not what the function needs."""
     NEXT = NE + Nz - 2
     band = NEXT * (NE - 1) - NE * (NE - 1) // 2
     nbytes = 4 * (B * band + 7 * B * (Nz - 1) * NE + 3 * B * NE)
     flops = B * (Nz - 1) * (NE * (NE - 1) + K1_ELEM_FLOPS * NE)
-    out = bound(nbytes, flops, F32_FLOPS)
     steps = (Nz - 1) * NE
-    chain_ms = steps * (SHFL_CYCLES + FMA_CYCLES) / SM_CLOCK_HZ * 1e3
-    out.update(bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-               rate_ms=flops / F32_FLOPS * 1e3, chain_ms=chain_ms,
-               chain_steps=steps,
-               operations_by="chain" if chain_ms > flops / F32_FLOPS * 1e3
-               else "rate")
-    if chain_ms > out["bound_ms"]:
-        out.update(bound_ms=chain_ms, bound_by="operations")
-    return out
+    return dict(
+        bound(nbytes, flops, F32_FLOPS),
+        bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        rate_ms=flops / F32_FLOPS * 1e3,
+        design_chain_ms=steps * (SHFL_CYCLES + FMA_CYCLES) / SM_CLOCK_HZ * 1e3,
+        design_chain_steps=steps,
+        design_chain_assumes=dict(shfl_cycles=SHFL_CYCLES,
+                                  fma_cycles=FMA_CYCLES,
+                                  sm_clock_hz=SM_CLOCK_HZ))
 
 
 def k2_bound(B, n_steps, NE, design):

@@ -125,19 +125,6 @@ def _resolve_march(cfg: Config, device) -> str:
     return "trisolve"
 
 
-def _rank1_fused(cfg: Config, device) -> bool:
-    """Whether the f64 ``rank1`` march of ``cfg`` goes through the fused
-    kernel march (``ops/march_ds``): tensors on CUDA and at most 8192
-    bins, the most that kernel's one block per point takes. Decided from
-    the device and ``cfg.N_bins_E`` alone, before any launch; above the
-    ceiling, and on CPU tensors, the eager ``_z_step_rank1`` marches. A
-    kernel that fails to build or to launch raises whatever this says."""
-    from nusiprop_tpu_torch.ops import march_ds
-
-    return (torch.device(device).type == "cuda"
-            and cfg.N_bins_E <= march_ds._MAX_BINS)
-
-
 def _channels(cfg: Config):
     """Channel decomposition of the f64 table build, in its order of
     summation (the JAX ``_channels``)."""
@@ -533,7 +520,8 @@ def _trisolve_f32_scan(xs, A32ext, W, NE: int):
     return phi
 
 
-def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
+def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
+                 mn=None):
     """Kernel tables ``(tblG, tblAt, tblA)`` of the trisolve and loop
     marches (the JAX ``build_tables``), built channel by channel in one
     order of summation (the sum's association is part of the result at
@@ -551,7 +539,8 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
       over ``_channels(cfg)``.
 
     The rank1 marches build their factorized tables inside
-    ``evolve_core`` and raise here.
+    ``evolve_core`` and raise here. ``mn`` is the mass spectrum where the
+    caller has it already (a 200-step bisection otherwise).
     """
     from nusiprop_tpu_torch.models import kernels_nr_f32
 
@@ -566,7 +555,8 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None):
     gr = grids.build(cfg, dev)
     Wf = torch.as_tensor(mixing.pmns_sq(cfg.normal_ordering)[cfg.flav],
                          device=dev)
-    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+    if mn is None:
+        mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
     args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
     kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
               phiphi=cfg.phiphi)
@@ -647,7 +637,7 @@ def evolve_core(params: PhysicsParams, cfg: Config, march: str,
     elif march in ("trisolve", "trisolve_f32", "loop"):
         if tables is None:
             tables = build_tables(
-                params, dataclasses.replace(cfg, march=march))
+                params, dataclasses.replace(cfg, march=march), mn=mn)
         if march == "trisolve_f32":
             tblG, tblAt, (A32ext, pref_A) = tables
         else:
@@ -795,15 +785,17 @@ def evolve_batched(params: PhysicsParams, cfg: Config,
     """Evolve a batch of points (fields with one leading batch axis)
     through the march ``_resolve_march`` picks. The two fused kernel
     marches take theirs: ``trisolve_pallas`` through ``ops/march_tri``,
-    and ``rank1`` through ``ops/march_ds`` where ``_rank1_fused`` says so
-    (CUDA tensors, at most 8192 bins); ``evolve_core`` runs the rest."""
+    and ``rank1`` on CUDA tensors through ``ops/march_ds``, which takes at
+    most 8192 bins and raises above that, before anything is built (ask
+    for ``march="loop"`` or ``"trisolve"`` there, or for CPU tensors);
+    ``evolve_core`` runs the rest, and ``rank1`` on CPU tensors."""
     march = _resolve_march(cfg, params.device)
     if march == "trisolve_pallas":
         from nusiprop_tpu_torch.ops import march_tri
 
         return march_tri.evolve_trisolve_fused(params, cfg,
                                                pp_tables=pp_tables)
-    if march == "rank1" and _rank1_fused(cfg, params.device):
+    if march == "rank1" and params.device.type == "cuda":
         from nusiprop_tpu_torch.ops import march_ds
 
         return march_ds.evolve_rank1_fused(params, cfg)

@@ -50,6 +50,17 @@ CONFIG_KEYS = ("threads", "bins_per_thread", "barriers_per_node",
                "resident_blocks_per_sm", "max_bins")
 
 
+def check_bins(NE: int):
+    """Raise where ``NE`` bins are more than the kernel's block takes. A
+    rule on the bin count alone: callers ask before they build anything."""
+    if NE > _MAX_BINS:
+        raise ValueError(
+            f"{NE} bins are more than the fused rank1 kernel's block takes: "
+            f"16 bins on each of 512 threads (at most {_MAX_BINS} bins); "
+            "use march='loop' or 'trisolve', or CPU tensors (device='cpu'), "
+            "for the eager float64 march")
+
+
 def prepare_rank1_inputs(params: PhysicsParams, cfg: Config):
     """Per-z-node float64 rows of the fused march for a batch of points
     (params fields (B,)). Returns ``(rows, meta)``: ``rows[name]`` is
@@ -238,10 +249,7 @@ def march_ds_batched(rows, meta):
         raise ValueError(f"march_ds runs on cpu or cuda, not {dev}")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("march_ds needs contiguous rows on CUDA")
-    if NE > _MAX_BINS:
-        raise ValueError(
-            f"{NE} bins are more than the kernel's block takes: 16 bins on "
-            f"each of 512 threads (at most {_MAX_BINS} bins)")
+    check_bins(NE)
     lib = cuda_build.load("march_ds", _declare)
     out = torch.empty(B, 3, NE, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
@@ -289,7 +297,10 @@ def evolve_rank1_fused(params: PhysicsParams, cfg: Config):
     ``march="rank1"`` on CUDA tensors. On CUDA tensors it launches the
     hand-written CUDA kernel (``csrc/march_ds.cu``) or raises; on CPU
     tensors it runs the plain twin. params fields carry a leading batch
-    axis."""
+    axis. More than 8192 bins on CUDA tensors raise before any table is
+    built."""
+    if params.device.type == "cuda":
+        check_bins(cfg.N_bins_E)
     rows, meta = prepare_rank1_inputs(params, cfg)
     gr = grids.build(cfg, params.device)
     flux = _mass_flux(march_ds_batched(rows, meta), gr)

@@ -149,14 +149,17 @@ def evolve_trisolve_fused(params: PhysicsParams, cfg: Config,
     """Batched evolve through the fused trisolve march (params fields
     carry a leading batch axis): transport.build_tables, the f32 rows,
     and ``march_tri``."""
-    tables = transport.build_tables(params, cfg, pp_tables=pp_tables)
-    return march_fused_with_tables(params, tables, cfg)
+    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+    tables = transport.build_tables(params, cfg, pp_tables=pp_tables, mn=mn)
+    return march_fused_with_tables(params, tables, cfg, mn=mn)
 
 
-def march_fused_with_tables(params: PhysicsParams, tables, cfg: Config):
+def march_fused_with_tables(params: PhysicsParams, tables, cfg: Config,
+                            mn=None):
     """Fused evolve with the kernel tables precomputed
     (``(tblG, tblAt, (A32, pref_A))``, the transport.build_tables
-    contract) — the march-only stage."""
+    contract) — the march-only stage. ``mn`` is the mass spectrum where
+    the caller has it already."""
     tblG, tblAt, (A32, prefA) = tables
     dev = params.device
     gr = grids.build(cfg, dev)
@@ -173,7 +176,8 @@ def march_fused_with_tables(params: PhysicsParams, tables, cfg: Config):
 
     flux = phi.to(torch.float64) * scale[:, None, :] * inv_dE
     Wsq = torch.as_tensor(Wsq_np, device=dev)
-    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+    if mn is None:
+        mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
     health = transport._table_health(
         [tblG, tblAt, A32], transport._march_tau(gr, tblG))
     return transport._result(flux, gr, Wsq, mn, health)

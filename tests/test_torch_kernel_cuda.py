@@ -176,6 +176,32 @@ def test_rank1_route_launches_k2_on_card(entry):
     assert float(((b - a).abs()[gate] / a.abs()[gate]).max()) < 1e-10
 
 
+@pytest.mark.parametrize("entry", ["grid_scan", "evolve_pallas",
+                                   "march_ds_batched"])
+def test_rank1_above_the_kernel_ceiling_raises_on_card(entry):
+    """More than 8192 bins on CUDA tensors: every entry of the rank1
+    route refuses alike, launches nothing, and names the marches that
+    run there. None gives way to the eager march."""
+    dev = _card()
+    cfg = Config(N_bins_E=8193, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=False, phiphi=False, march="rank1")
+    params = nt.param_grid(MPHI[:2], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    before = march_ds.march_ds_batched.launches
+    with pytest.raises(ValueError, match="at most 8192 bins"):
+        if entry == "grid_scan":
+            nt.grid_scan(params, cfg)
+        elif entry == "evolve_pallas":
+            march_ds.evolve_pallas(params, cfg)
+        else:
+            rows = {n: torch.zeros((2, 8193) if n == "DW" else (2, 2, 8193),
+                                   dtype=torch.float64, device=dev)
+                    for n in march_ds.ROW_NAMES}
+            march_ds.march_ds_batched(
+                rows, dict(NE=8193, n_steps=2, W=(0.3, 0.3, 0.4)))
+    assert march_ds.march_ds_batched.launches == before
+
+
 @pytest.mark.parametrize("majorana", [True, False], ids=["maj", "dirac"])
 def test_trisolve_f32_matches_kernel_on_card(majorana):
     """The eager float32 march (cuBLAS products, TF32 switched on around

@@ -390,20 +390,18 @@ def test_resolve_march_serves_s_channel():
 
 
 def test_rank1_route_is_decided_from_the_bin_count_alone(monkeypatch):
-    """The f64 rank1 march on CPU tensors is the eager march, unchanged;
-    on CUDA tensors it is the fused kernel march up to its ceiling of
-    8192 bins and the eager march above, a rule on the device and
-    ``N_bins_E`` that is settled before anything is built or launched."""
+    """The f64 rank1 march on CPU tensors is the eager march, unchanged,
+    at any bin count; on CUDA tensors it is the fused kernel march, which
+    takes at most 8192 bins and refuses more by a rule on ``N_bins_E``
+    alone, the same at every entry, naming the marches that run there."""
     from nusiprop_tpu_torch.ops import march_ds
 
-    cfg = Config(N_bins_E=100, **S_CFG)
-    at = lambda n: dataclasses.replace(cfg, N_bins_E=n)
     assert march_ds._MAX_BINS == 8192
-    assert not transport._rank1_fused(cfg, "cpu")
-    assert not transport._rank1_fused(at(9000), "cpu")
-    assert transport._rank1_fused(cfg, "cuda")
-    assert transport._rank1_fused(at(8192), "cuda")
-    assert not transport._rank1_fused(at(8193), "cuda")
+    march_ds.check_bins(100)
+    march_ds.check_bins(8192)
+    for n in (8193, 9000):
+        with pytest.raises(ValueError, match="march='loop' or 'trisolve'"):
+            march_ds.check_bins(n)
 
     # CPU tensors never reach the fused route: evolve_batched is
     # evolve_core's eager march, bitwise

@@ -124,7 +124,8 @@ def test_grid_scan_chunked_equals_unchunked(runs, chunk):
 ], ids=["cpu", "coarse-bins", "f64-tables", "s-channel", "trisolve",
         "trisolve_f32", "loop", "f32-tables-cpu", "f32-tables-cuda"])
 def test_resolve_march_refuses_unserved_configs(kw, device, march):
-    """Every config this test once saw refused resolves to a march that
+    """(Named from when the port refused these; they run now.)
+    Every config this test once saw refused resolves to a march that
     runs: "auto" on a non-resonant config keeps the fused march for CUDA
     tensors, f32 tables and production bins, and takes the f64 trisolve
     march anywhere else; an explicit march is taken as given."""
@@ -138,7 +139,8 @@ def test_resolve_march_refuses_unserved_configs(kw, device, march):
 @pytest.mark.parametrize("entry", ["grid_scan", "grid_scan_chunked",
                                    "Evolver"])
 def test_entry_points_refuse_auto_march_on_cpu(entry):
-    """march="auto" on a non-resonant config with CPU tensors is the f64
+    """(Named from when the port refused this; it runs now.)
+    march="auto" on a non-resonant config with CPU tensors is the f64
     trisolve march at every entry point (what the JAX package runs off
     the TPU): no fused march is involved, and the flux is the explicit
     "trisolve" one."""
