@@ -43,6 +43,28 @@ phase printing one JSON line:
               difference from the K1 path is printed and not gated (the
               f64 closed forms are noise below the resonance); and once
               at batch 64 in one chunk, for the peak memory of a chunk of 64
+  phiphi      the phi-phi channel where it is open: 500 bins over lE in
+              [9, 14], power law, mphi = geomspace(1e5, 1e6, 64), g = 0.03,
+              mntot 0.1, si 2.5, the packaged tables of load_default;
+              grid_scan launches K1 once; K1 against its plain twin on
+              these tables and rows; the flux against "trisolve_f32"
+              (gated rel < 5e-5) and against phi-phi off (max rel > 1e-2);
+              extrapolation="raise" passes with counts (0, 0) and raises at
+              50 bins with no launch; warm walls (median, min and max of
+              REPS runs) of the evolve, its table build, the pp channels
+              alone and the march stage, the phi-phi-off evolve beside
+              them, peak memory and z-steps/s
+  evolver_defaults  Evolver(mphi=6e5, g=0.03, mntot=0.1, si=2.5) with no
+              other argument (300 bins over lE in [12, 17], dsnb, phi-phi
+              on, on the card): one K1 launch, finite flux, the energy
+              drift; audit() and evolve(audit=True) (the audit after the
+              evolve); with source="powerlaw" (the DSNB source is zero at
+              these energies, so the defaults' flux is zero on every bin):
+              one K1 launch, K1 at batch 1, NE 300 against its plain twin
+              on that point's tables and rows and the evolve's flux
+              against the plain phi (gated rel < 5e-5), and
+              coupling_matrix = outer(w, w) against the diagonal f64
+              "trisolve" evolve (< 1e-10)
   schannel_evolver  the golden config (test.py's: mphi 5e6, g 1e-6, 100
               bins over lE in [4, 9], dsnb, Majorana, NO, flav 2) through
               Evolver with march "auto" (rank1, f64: K2's route on the
@@ -131,6 +153,15 @@ CLEAN = dict(N_bins_E=500, lEmin=9.0, lEmax=14.0, zmax=5.0,
              non_resonant=True, majorana=True, normal_ordering=True,
              flav=2, phiphi=False, source="powerlaw")
 CLEAN_POINT = dict(mphi=6e5, g=1e-2, mntot=0.1, si=2.5, norm=1.0)
+# The phi-phi channel opens only where s = 2 mn E / mphi^2 > 4; over
+# lE in [4, 9] at mphi >= 1e5 it is closed everywhere and the tables add
+# exactly zero. This window (tools/tpu_crosscheck.py's pp records) is open,
+# and its 0.01 decades per bin sit inside the packaged tables' axes.
+PHIPHI = dict(N_bins_E=500, lEmin=9.0, lEmax=14.0, zmax=5.0,
+              non_resonant=True, majorana=True, normal_ordering=True,
+              flav=2, phiphi=True, source="powerlaw")
+PHIPHI_BATCH = 64  # the JAX bench's phiphi batch (mphi = geomspace(1e5, 1e6))
+PHIPHI_G = 0.03
 # float64 operations of K2 per bin and node (counted from
 # csrc/march_ds.cu: izdr, M, adjugate, det, two solves, U.w, V.w, a, b:
 # 119; the read-out 7; the walk of cum 2) and per thread and node for one
@@ -330,8 +361,10 @@ def main():
          flux_fla_rel_vs_majorana=maj_vs_dirac, **public(cmp_d))
 
     f64 = trisolve_f64_phase(dev, card, params, res)
+    pp = phiphi_phase(dev, card)
+    dflt = evolver_defaults_phase(dev)
 
-    cmps = (cmp1, cmp128, cmp500, cmp1024, cmp_d)
+    cmps = (cmp1, cmp128, cmp500, cmp1024, cmp_d, pp["cmp"], dflt["cmp"])
     b1 = k1_bound(B, NE, Nz)
     design = dict(mt.kernel_config(NE),
                   smem_bytes_ne1024=mt.kernel_config(1024)["smem_bytes"],
@@ -340,23 +373,33 @@ def main():
         name="march_tri", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_tri.cu",
         replaces="nusiprop_tpu/ops/march_tri.py:83::_make_kernel",
-        launches=n_ev + main_launches + n_dirac + f64["k1_launches"],
+        launches=(n_ev + main_launches + n_dirac + f64["k1_launches"]
+                  + pp["launches"] + dflt["launches"]
+                  + dflt["powerlaw_launches"]),
         launches_by_path={"evolver": n_ev, "grid_scan": main_launches,
                           "dirac": n_dirac,
-                          "trisolve_f64_partner": f64["k1_launches"]},
+                          "trisolve_f64_partner": f64["k1_launches"],
+                          "phiphi": pp["launches"],
+                          "evolver_defaults": dflt["launches"],
+                          "evolver_defaults_powerlaw":
+                              dflt["powerlaw_launches"]},
         max_abs_err=max(c["max_abs_err"] for c in cmps),
         max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         max_flux_rel_vs_plain=max(cmp1["flux_rel_vs_plain"],
                                   cmp128["flux_rel_vs_plain"],
-                                  cmp_d["flux_rel_vs_plain"]),
+                                  cmp_d["flux_rel_vs_plain"],
+                                  pp["cmp"]["flux_rel_vs_plain"],
+                                  dflt["cmp"]["flux_rel_vs_plain"]),
+        ms_phiphi_batch64=pp["cmp"]["kernel_ms"],
         ms=cmp128["kernel_ms"], plain_ms=cmp128["plain_ms"], **b1,
         share_of_bound=b1["bound_ms"] / cmp128["kernel_ms"],
         design_chain_share=b1["design_chain_ms"] / cmp128["kernel_ms"],
         ms_batch1=cmp1["kernel_ms"], ms_batch8=cmp500["kernel_ms"],
         library_ms=None, design=design,
         shape="batch 128, NE 500, Nz 79 (the grid_scan path's own); "
-              "also compared at batch 1, batch 8, NE 1024 batch 2 and on "
-              "the Dirac tables at batch 8")
+              "also compared at batch 1, batch 8, NE 1024 batch 2, on "
+              "the Dirac tables at batch 8, on the phi-phi tables at "
+              "batch 64 and on the power-law defaults at batch 1, NE 300")
 
     k2 = schannel_phases(dev, card)
     emit(kernels=[k1, k2])
@@ -447,6 +490,208 @@ def trisolve_f64_phase(dev, card, params, k1_res):
          worst_rel_neg=float(res.health[:, 0].min()),
          nonfinite_table_entries=float(res.health[:, 1].sum()), card=card)
     return dict(k1_launches=k1_launches)
+
+
+def phiphi_phase(dev, card):
+    """The phi-phi channel where it is open (PHIPHI, the JAX bench's phiphi
+    batch of 64) through grid_scan and K1, with the packaged tables of
+    load_default: K1 against its plain twin on these tables and rows, the
+    flux against the eager trisolve_f32 march, against phi-phi off (the
+    tables must matter), extrapolation="raise" passing here and raising at
+    50 bins with no launch, and warm walls. Returns the phase's K1
+    launches and its kernel comparison."""
+    import torch
+
+    from nusiprop_tpu_torch import grid_scan, param_grid
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.models import (grids, kernels, masses, mixing,
+                                           pp_tables, transport)
+    from nusiprop_tpu_torch.ops import march_tri as mt
+
+    t0 = time.perf_counter()
+    ppt = pp_tables.load_default().to(dev)
+    t_load = time.perf_counter() - t0
+    cfg = Config(**PHIPHI)
+    B = PHIPHI_BATCH
+    params = param_grid(torch.logspace(5, 6, B, dtype=torch.float64),
+                        [PHIPHI_G], mntot=0.1, si=2.5, norm=1.0, device=dev)
+    grid_scan(params, cfg, pp_tables=ppt)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.march_tri.launches = 0
+    res = grid_scan(params, cfg, pp_tables=ppt)
+    torch.cuda.synchronize()
+    launches = mt.march_tri.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == 1, f"the phi-phi grid_scan launched K1 once: {launches}")
+    check(bool(torch.isfinite(res.flux_fla).all()), "phi-phi flux finite")
+    check(bool((res.flux >= 0).all()), "phi-phi flux non-negative")
+    check(bool((res.health[:, 1] == 0).all()), "no non-finite table entries")
+
+    tables = transport.build_tables(params, cfg, pp_tables=ppt)
+    m = march_inputs(params, cfg, tables)
+    cmp = compare(mt, m)
+    cmp["flux_rel_vs_plain"] = flux_vs_plain(res.flux, m, cmp["plain"])
+    res_f32 = grid_scan(params, Config(**dict(PHIPHI, march="trisolve_f32")),
+                        pp_tables=ppt)
+    f32_rel = gated_rel(res_f32.flux_fla, res.flux_fla)
+    check(f32_rel < GATE, f"phi-phi K1 path vs trisolve_f32 {f32_rel:.3e}")
+    cfg_off = Config(**dict(PHIPHI, phiphi=False))
+    res_off = grid_scan(params, cfg_off)
+    matter = gated_rel(res_off.flux_fla, res.flux_fla)
+    check(matter > 1e-2, f"the phi-phi tables move the flux: {matter:.3e}")
+
+    # extrapolation="raise": passes here, raises at 50 bins before a launch
+    gr = grids.build(cfg, dev)
+    mn = masses.mass_spectrum(params.mntot, True)
+    counts = [int(c.sum()) for c in kernels.pp_extrapolation_counts(
+        gr.Emin_ext, gr.Emax_ext, mn, params.mphi, pp_tables=ppt)]
+    check(counts == [0, 0], f"no lookup leaves the tables: {counts}")
+    cfg_raise = Config(**PHIPHI, extrapolation="raise")
+    mt.march_tri.launches = 0
+    grid_scan(params, cfg_raise, pp_tables=ppt)
+    check(mt.march_tri.launches == 1, "extrapolation='raise' passes here")
+    cfg_coarse = Config(**dict(PHIPHI, N_bins_E=50), extrapolation="raise")
+    mt.march_tri.launches = 0
+    try:
+        grid_scan(params, cfg_coarse, pp_tables=ppt)
+        raised = False
+    except RuntimeError as e:
+        raised = "extrapolation" in str(e)
+    check(raised and mt.march_tri.launches == 0,
+          "50 bins over 5 decades raises before K1 is launched")
+
+    # warm walls (medians of REPS): the whole evolve, its table build, the
+    # pp channels alone, the march stage; phi-phi off at the same batch
+    Wf = torch.as_tensor(mixing.pmns_sq(True)[cfg.flav], device=dev)
+    args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+    kw = dict(majorana=cfg.majorana, non_resonant=True, phiphi=True,
+              pp_tables=ppt, channel="pp")
+    pp32 = transport._pp_f32(ppt)
+
+    def pp_channels():
+        kernels.gamma_table(*args, **kw)
+        kernels.alphatilde_table(*args, **kw)
+        kernels.alpha_pp_table_norm(gr.Emin_ext, gr.Emax_ext, mn,
+                                    params.mphi, Wf, majorana=cfg.majorana,
+                                    pp_tables=pp32)
+
+    t_evolve = wall_times(lambda: grid_scan(params, cfg, pp_tables=ppt))
+    t_tables = wall_times(
+        lambda: transport.build_tables(params, cfg, pp_tables=ppt))
+    t_pp = wall_times(pp_channels)
+    t_stage = wall_times(
+        lambda: mt.march_fused_with_tables(params, tables, cfg))
+    t_off = wall_times(lambda: grid_scan(params, cfg_off))
+    Nz = m["Nz"]
+    emit(phase="phiphi", batch=B, NE=cfg.N_bins_E, Nz=Nz,
+         NEXT=cfg.N_bins_E + Nz - 2, g=PHIPHI_G, tables_shape=list(
+             ppt.alpha.values.shape), tables_load_s=t_load,
+         kernel_launches=launches, flux_fla_rel_vs_trisolve_f32=f32_rel,
+         tables_matter_max_rel=matter, extrapolation_counts=counts,
+         coarse_raised=raised, reps=REPS, evolve_s=t_evolve,
+         tables_s=t_tables, pp_channels_s=t_pp,
+         pp_share_of_tables=t_pp["median"] / t_tables["median"],
+         march_stage_s=t_stage, phiphi_off_evolve_s=t_off,
+         evolve_ratio_vs_phiphi_off=t_evolve["median"] / t_off["median"],
+         z_steps_per_s=B * (Nz - 1) / t_evolve["median"],
+         peak_mem_gb=peak / 1e9, card=card, **public(cmp))
+    return dict(launches=launches, cmp=cmp)
+
+
+def evolver_defaults_phase(dev):
+    """The wrapper's one-line call, nt.Evolver(mphi, g, mntot, si): 300 bins
+    over lE in [12, 17], dsnb, phi-phi on with the packaged tables, on the
+    card by default. One K1 launch; the audit, after the evolve under
+    evolve(audit=True); and a coupling matrix Q = w w^T against the
+    diagonal f64 trisolve evolve of the same point (< 1e-10, the gate of
+    tests/test_general_coupling.py) on the defaults with a power-law
+    source; K1 at the defaults' shape against its plain twin on that
+    power-law point (the defaults' own flux is zero). Returns the K1
+    launches of the two evolves and the kernel comparison."""
+    import numpy as np
+
+    from nusiprop_tpu_torch import Evolver
+    from nusiprop_tpu_torch.models import diagnostics, mixing, transport
+    from nusiprop_tpu_torch.ops import march_tri as mt
+
+    mt.march_tri.launches = 0
+    ev = Evolver(mphi=6e5, g=0.03, mntot=0.1, si=2.5)
+    ev.evolve()
+    launches = mt.march_tri.launches
+    check(launches == 1, f"the default Evolver launched K1 once: {launches}")
+    check(ev.device.type == "cuda" and ev.config.phiphi
+          and ev._pp_tables.device.type == "cuda",
+          "the defaults: on the card, phi-phi on, tables on the card")
+    flux = ev.get_flux_fla()
+    check(flux.shape == (3, 300) and np.isfinite(flux).all()
+          and (flux >= 0).all(), "default Evolver flux finite, non-negative")
+    drift = ev.check_energy_conservation()
+    check(math.isfinite(drift), "energy conservation finite")
+
+    rep = ev.audit()
+    check(isinstance(rep, diagnostics.KernelAudit) and rep is ev.last_audit,
+          "audit() returns a KernelAudit")
+    order = []
+    real_evolve, real_audit = transport.evolve, diagnostics.audit_kernels
+
+    def evolve(*a, **k):
+        order.append("evolve")
+        return real_evolve(*a, **k)
+
+    def audit(*a, **k):
+        order.append("audit")
+        return real_audit(*a, **k)
+
+    transport.evolve, diagnostics.audit_kernels = evolve, audit
+    try:
+        ev.evolve(audit=True)
+    finally:
+        transport.evolve, diagnostics.audit_kernels = real_evolve, real_audit
+    check(order == ["evolve", "audit"], f"evolve(audit=True) order {order}")
+
+    # the defaults' DSNB source is zero above ~4e9 eV, so their flux is
+    # zero on every bin (in the JAX package too) and would hold neither K1
+    # nor Q to anything: both comparisons take the defaults with a
+    # power-law source. K1 at the defaults' shape (batch 1, NE 300, the
+    # phi-phi channel open over most of the window) against its plain
+    # twin on that point's tables and rows, and the evolve's flux against
+    # the plain phi
+    kw = dict(mphi=6e5, g=0.03, mntot=0.1, si=2.5, source="powerlaw")
+    pl = Evolver(**kw)
+    mt.march_tri.launches = 0
+    pl.evolve()
+    pl_launches = mt.march_tri.launches
+    check(pl_launches == 1,
+          f"the power-law defaults launched K1 once: {pl_launches}")
+    p1 = pl.params.map(lambda x: x[None])
+    m = march_inputs(p1, pl.config, transport.build_tables(
+        p1, pl.config, pp_tables=pl._pp_tables))
+    cmp = compare(mt, m)
+    pl_flux = pl._result.flux[None]
+    check(float(pl_flux.abs().max()) > 0, "the power-law flux is live")
+    cmp["flux_rel_vs_plain"] = flux_vs_plain(pl_flux, m, cmp["plain"])
+
+    w = mixing.pmns_sq(True)[2]
+    gen = Evolver(**kw, coupling_matrix=np.outer(w, w)).evolve()
+    diag = Evolver(**kw, march="trisolve").evolve()
+    a, b = diag.get_flux_fla(), gen.get_flux_fla()
+    gate = np.abs(a) > np.abs(a).max() * GATE_FLOOR
+    q_rel = float((np.abs(b - a)[gate] / np.abs(a)[gate]).max())
+    check(q_rel < 1e-10, f"Q = w w^T vs the diagonal trisolve {q_rel:.3e}")
+    emit(phase="evolver_defaults", N_bins_E=ev.config.N_bins_E,
+         lE=[ev.config.lEmin, ev.config.lEmax], source=ev.config.source,
+         phiphi=ev.config.phiphi, device=str(ev.device),
+         tables_shape=list(ev._pp_tables.alpha.values.shape),
+         kernel_launches=launches, energy_drift=drift,
+         flux_fla_max=float(flux.max()), audit_healthy=rep.healthy,
+         audit=rep.pretty().splitlines(), audit_order=order,
+         coupling_matrix_rel_vs_diagonal=q_rel,
+         powerlaw=dict(batch=1, NE=m["NE"], Nz=m["Nz"],
+                       kernel_launches=pl_launches,
+                       flux_fla_max=float(pl_flux.abs().max()),
+                       **public(cmp)))
+    return dict(launches=launches, powerlaw_launches=pl_launches, cmp=cmp)
 
 
 def schannel_phases(dev, card):

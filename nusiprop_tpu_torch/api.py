@@ -4,11 +4,11 @@
 check, the ``get_*`` accessors, ``check_energy_conservation`` and the
 ``interp_flux_*`` interpolators.
 
-It runs every march mode of ``Config`` (``transport._resolve_march``);
-on s-channel configs (``non_resonant=False``) the default ``phiphi=True``
-is inert, as in the JAX package. phi-phi on a non-resonant config,
-``coupling_matrix`` and ``audit`` raise ``NotImplementedError`` naming
-their ROADMAP slices.
+It runs every march mode of ``Config`` (``transport._resolve_march``),
+the phi-phi channel (the wrapper's default ``phiphi=True`` on a
+non-resonant config loads the spline tables at construction; on s-channel
+configs it is inert, as in the JAX package), general couplings
+(``coupling_matrix``) and the per-channel kernel audit (``audit``).
 """
 
 import sys
@@ -28,7 +28,8 @@ class Evolver:
     defaults), plus:
       march  ---- march mode ["auto": for non-resonant configs the fused
                   CUDA march on a card and the f64 "trisolve" on the CPU,
-                  "rank1" for s-channel configs]
+                  "rank1" for s-channel configs; a coupling_matrix runs
+                  its own f64 march whatever this says]
       device ---- torch device of every tensor ["cuda"; raises when no
                   card is present, pass "cpu" to run on the CPU]
     """
@@ -39,14 +40,6 @@ class Evolver:
                  zmax=5.0, flav=2, phiphi=True, source="dsnb",
                  coupling_matrix=None, extrapolation="clamp",
                  march="auto", device="cuda"):
-        if coupling_matrix is not None:
-            raise NotImplementedError(
-                "coupling_matrix (general flavor couplings) is slice E "
-                "(ROADMAP queue 1 item 12)")
-        if phiphi and non_resonant:
-            raise NotImplementedError(
-                "phiphi=True needs the phi-phi channel tables: slice D "
-                "(ROADMAP queue 1 item 11); pass phiphi=False")
         self.config = Config(
             majorana=bool(majorana), non_resonant=bool(non_resonant),
             normal_ordering=bool(normal_ordering), N_bins_E=int(N_bins_E),
@@ -56,8 +49,21 @@ class Evolver:
         self.device = resolve_device(device)
         self.params = PhysicsParams.create(mphi, g, mntot, si, norm,
                                            device=self.device)
-        self.coupling_matrix = None
+        # mass-basis |g_ij|^2/g^2 for non-diagonal flavor structures
+        # (transport.evolve_general, mixing.flavor_coupling_to_Q); None is
+        # the reference's flavor-diagonal interaction picked by ``flav``
+        self.coupling_matrix = (None if coupling_matrix is None
+                                else np.asarray(coupling_matrix,
+                                                dtype=np.float64))
+        # the phi-phi tables load only where they act, like the reference
+        # (nuSIprop.hpp:59, 166-170), and move to the device once, here
+        self._pp_tables = None
+        if self.config.phiphi and self.config.non_resonant:
+            from nusiprop_tpu_torch.models import pp_tables
+
+            self._pp_tables = pp_tables.load_default().to(self.device)
         self.evolved = False
+        self.last_audit = None
         self._result: EvolveResult | None = None
 
     # -- parameter access (mirrors the public fields mphi,g,mntot,si,norm) --
@@ -94,12 +100,20 @@ class Evolver:
     # -- main entry points ---------------------------------------------------
 
     def evolve(self, audit=False):
-        """Evolve the neutrino flux (``audit=True`` is slice E)."""
-        if audit:
-            self.audit()
-        self._result = transport.evolve(self.params, self.config)
+        """Evolve the neutrino flux, check the tables' health, and with
+        ``audit=True`` then run the per-channel audit (``audit()``; kept on
+        ``self.last_audit``), in the JAX package's order."""
+        if self.coupling_matrix is not None:
+            self._result = transport.evolve_general(
+                self.params, self.coupling_matrix, self.config,
+                pp_tables=self._pp_tables)
+        else:
+            self._result = transport.evolve(self.params, self.config,
+                                            pp_tables=self._pp_tables)
         self.evolved = True
         self._check_health()
+        if audit:
+            self.audit()
         return self
 
     # relative negativity the reference tolerates as roundoff
@@ -122,12 +136,26 @@ class Evolver:
                 f"relative entry {worst:.3e}; {int(nonfinite)} non-finite "
                 "entries).\n"
                 f"Possible roundoff errors for g={self.g}, "
-                f"mphi={self.mphi}, mntot={self.mntot}\n")
+                f"mphi={self.mphi}, mntot={self.mntot}\n"
+                "Run evolve(audit=True) for the per-channel report.\n")
 
     def audit(self):
-        raise NotImplementedError(
-            "the per-channel kernel audit (models/diagnostics) is slice E "
-            "(ROADMAP queue 1 item 12)")
+        """Build the float64 kernel tables and warn on stderr if they are
+        unhealthy. Returns the ``models.diagnostics.KernelAudit`` report,
+        also kept on ``self.last_audit``."""
+        from nusiprop_tpu_torch.models import diagnostics
+
+        report = diagnostics.audit_kernels(self.params, self.config,
+                                           pp_tables=self._pp_tables)
+        self.last_audit = report
+        if not report.healthy:
+            sys.stderr.write(
+                "Negative cross section in the kernel tables (even after "
+                "the quadrature rescues). The table health is as "
+                "follows:\n" + report.pretty() + "\n"
+                f"Possible roundoff errors for g={self.g}, "
+                f"mphi={self.mphi}, mntot={self.mntot}\n")
+        return report
 
     def _require_evolved(self):
         if not self.evolved or self._result is None:
@@ -218,7 +246,8 @@ class Evolver:
         """Relative total-energy drift vs free streaming; evolves the flux
         as a side effect, exactly once (nuSIprop.hpp:339-357)."""
         val, res = transport.check_energy_conservation(
-            self.params, self.config, return_result=True)
+            self.params, self.config, pp_tables=self._pp_tables,
+            return_result=True)
         self.evolved = True
         self._result = res
         return float(val)

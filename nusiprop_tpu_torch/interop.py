@@ -1,6 +1,7 @@
 """Conversions from the JAX package's objects to this port's (through
 numpy), so a test can feed the port exactly the state the JAX package
-computed — e.g. to hold the march alone on identical tables.
+computed — e.g. to hold the march alone on identical tables, or both
+packages on one phi-phi spline.
 
 This module imports no JAX itself: it reads the JAX objects' fields and
 converts every array with ``numpy.asarray``.
@@ -62,3 +63,26 @@ def rank1_inputs_from_jax(inp, NE, device="cuda"):
             raise ValueError("the DW rows differ across the batch")
         rows["DW"] = dw[0]
     return {n: _t(v, device) for n, v in rows.items()}
+
+
+def _spline_from_jax(spl, device):
+    from nusiprop_tpu_torch.ops import interp
+
+    return interp.SplineND(
+        nodes=tuple(_t(x, device) for x in spl.nodes),
+        weights=tuple(_t(w, device) for w in spl.weights),
+        values=_t(spl.values, device), regular=bool(spl.regular),
+        log_axes=tuple(bool(b) for b in spl.log_axes),
+        log_value=bool(spl.log_value))
+
+
+def pp_tables_from_jax(ppt, device="cuda"):
+    """JAX ``PPTables`` -> port ``PPTables``: the nodes, weight tensors
+    and values of both splines through numpy (their dtypes kept, so an
+    ``astype``-cast table stays cast), and the static fields as they
+    are."""
+    from nusiprop_tpu_torch.models import pp_tables
+
+    return pp_tables.PPTables(alphatilde=_spline_from_jax(ppt.alphatilde,
+                                                          device),
+                              alpha=_spline_from_jax(ppt.alpha, device))

@@ -1,6 +1,6 @@
 """Non-resonant self-interaction kernel channels in float64: t, u, t-u,
-s-t and s-u interference (port of ``nusiprop_tpu.models.kernels_nr``
-without its phi-phi functions, which are slice D of the port).
+s-t and s-u interference, and double-scalar (phi-phi) production (port of
+``nusiprop_tpu.models.kernels_nr``).
 
 These extend the s-channel closed forms of ``kernels.py`` with the
 channels the reference enables under ``non_resonant=true``
@@ -32,6 +32,14 @@ Behavioral notes reproduced deliberately:
   * GSL's complex dilog on the real axis (used by alpha_st,
     nuSIprop.hpp:1444-1451) takes Im Li2(x) = -pi ln x for x >= 1
     (continuous from below, the Mathematica convention).
+  * The phi-phi Gamma integral clamps sminus to 4 below threshold
+    (nuSIprop.hpp:885-887 substitutes sminus -> 4 literally); the general
+    closed form is evaluated at the clamped argument, identical term by
+    term.
+  * The phi-phi alpha and alphaTilde channels read the spline tables of
+    ``models/pp_tables`` in the table's values dtype; without tables they
+    fall back to the analytic large-s tails (the JAX package's documented
+    degradation).
 """
 
 import math
@@ -45,9 +53,6 @@ from nusiprop_tpu_torch.ops.quadrature import GL3_W, GL3_X, gl3, gl3_2d
 PI = 3.141592653589793
 
 _TINY = 1e-30  # clamp floor (the JAX value)
-
-_PP_SLICE = ("the phi-phi channel (gamma_pp, alphatilde_pp, alpha_pp) is "
-             "slice D (ROADMAP queue 1 item 11)")
 
 
 def _ln(x):
@@ -65,6 +70,14 @@ def _log1p(x):
     # Every TAKEN use site has argument >= 0 (strict-upper pair geometry),
     # so the 1e-15 floor only affects discarded branches.
     return sf.log1p_safe(torch.clamp(x, min=-1.0 + 1e-15))
+
+
+def _sqrt(x):
+    # Floor at _TINY, not 0: sqrt(0)'s derivative is 1/0, and at clamped
+    # kinematic thresholds (gamma_pp's s = 4 clip) the incoming gradient
+    # is 0, so reverse-mode differentiation would give 0*inf = NaN. The
+    # floor moves forward values by at most sqrt(1e-30) = 1e-15.
+    return torch.sqrt(torch.clamp(x, min=_TINY))
 
 
 def _sq(x):
@@ -179,6 +192,61 @@ def gamma_st(sm, sp, g, gr):
     )
 
 
+def _gamma_pp_closed(sm, sp, g):
+    """phi-phi production closed form, sm already clamped to >= 4
+    (nuSIprop.hpp:882-887)."""
+    pref = (g * g) / (128.0 * PI) * (g * g)
+
+    def pieces(s):
+        rt = _sqrt(s - 4.0)
+        rs = torch.sqrt(torch.clamp(s, min=4.0))
+        v = _sqrt((s - 4.0) / s)
+        sum_ = rt + rs
+        dif = rt - rs
+        big = s - 2.0 + rt * rs  # -2 + s + sqrt((s-4) s)
+        neg = 2.0 - s + rt * rs  # 2 - s + sqrt((s-4) s)
+        return rt, rs, v, sum_, dif, big, neg
+
+    rtm, rsm, vm, summ, difm, bigm, negm = pieces(sm)
+    rtp, rsp, vp, sump, difp, bigp, negp = pieces(sp)
+
+    return pref * (
+        12.0 * vm
+        - 12.0 * vp
+        - 2.0 * _ln(difm * difm / 4.0) * _ln(bigm * bigm / 4.0)
+        - (6.0 + sm * _ln((sm - 2.0) * sm)) * _ln(bigm * bigm / (negm * negm)) / sm
+        - 24.0 * (vm - vp - _ln(summ) + _ln(sump))
+        + 2.0 * _ln(difp * difp / 4.0) * _ln(bigp * bigp / 4.0)
+        + (6.0 + sp * _ln((sp - 2.0) * sp)) * _ln(bigp * bigp / (negp * negp)) / sp
+        + 8.0 * sf.dilogdiff(4.0 / (summ * summ), 4.0 / (sump * sump))
+        + 2.0 * sf.dilogdiff(4.0 / (bigm * bigm), 4.0 / (bigp * bigp))
+    )
+
+
+def gamma_pp(sm, sp, g, *, majorana: bool):
+    """Double scalar production nu nu -> phi phi (nuSIprop.hpp:880-907).
+
+    Active only where sp > 4; sm is clamped to 4 below threshold.
+    """
+    sm_c = torch.clamp(sm, min=4.0)
+    sp_c = torch.clamp(sp, min=4.0 + 1e-12)
+    closed = _gamma_pp_closed(sm_c, sp_c, g)
+
+    def integrand(z):
+        z = torch.clamp(z, min=4.0 + 1e-12)
+        r = _sqrt(z * (z - 4.0))
+        ratio = (r + z - 2.0) / torch.where(
+            torch.abs(r - z + 2.0) < _TINY, -_TINY, r - z + 2.0)
+        return (z * z - 4.0 * z + 6.0) / (z * z * (z - 2.0)) * _ln(
+            ratio * ratio) - 6.0 * r / (z * z)
+
+    rescue = (g * g) / (64.0 * PI) * (g * g) * gl3(integrand, sm_c, sp_c)
+    val = torch.where(closed < 0.0, rescue, closed)
+    if majorana:  # scatter off both the CnuB neutrinos and antineutrinos
+        val = 2.0 * val
+    return torch.where(sp > 4.0, val, 0.0)
+
+
 def _sum_parts(parts, like):
     if not parts:
         return torch.zeros_like(like)
@@ -206,11 +274,9 @@ def _floor_t(x):
     return torch.clamp(x, max=-_COORD_FLOOR)
 
 
-def _check_channel(channel, phiphi):
+def _check_channel(channel):
     if channel not in ("all", "t_u", "tu", "st", "pp"):
         raise ValueError(f"unknown channel {channel!r}")
-    if channel == "pp" or phiphi:
-        raise NotImplementedError(_PP_SLICE)
 
 
 def gamma_nonresonant(sm, sp, g, mphi, ga, *, majorana, phiphi,
@@ -218,8 +284,9 @@ def gamma_nonresonant(sm, sp, g, mphi, ga, *, majorana, phiphi,
     """Sum of non-resonant Gamma channels with their multiplicities
     (nuSIprop.hpp:796-918). Returns mphi^2 * Gamma_nr; the caller applies
     |U|^2/(2 mn). ``channel`` selects one contribution ("t_u", "tu",
-    "st") or "all"; "pp", and ``phiphi=True``, raise (slice D)."""
-    _check_channel(channel, phiphi)
+    "st", "pp") or "all", so a caller can sum the channels in an order of
+    its own; "pp" contributes only with ``phiphi=True``."""
+    _check_channel(channel)
     gr = ga / mphi
     ok = sp >= _COORD_FLOOR
     sm = _floor_s(sm)
@@ -235,6 +302,8 @@ def gamma_nonresonant(sm, sp, g, mphi, ga, *, majorana, phiphi,
         st = gamma_st(sm, sp, g, gr)
         # s-u interference equals s-t for Majorana (:874-878)
         parts.append(2.0 * st if majorana else st)
+    if phiphi and channel in ("all", "pp"):
+        parts.append(gamma_pp(sm, sp, g, majorana=majorana))
     return torch.where(ok, _sum_parts(parts, sm), 0.0)
 
 
@@ -484,13 +553,45 @@ def alphatilde_st(tm, tp, g, gr, *, majorana: bool):
     )
 
 
+def alphatilde_pp(tm, tp, g, *, majorana: bool, pp_tables):
+    """Double scalar production (nuSIprop.hpp:1194-1213): the 2-D spline
+    for -tplus in (4, 1e4), the analytic Taylor tail above."""
+    mtp = torch.clamp(-tp, min=4.0 + 1e-12)
+    mtm = torch.clamp(-tm, min=_TINY)
+
+    # Taylor tail for -tplus >= 1e4 (nuSIprop.hpp:1202)
+    ltm = _ln(mtm)
+    ltp = _ln(mtp)
+    ldt = _ln(torch.clamp(tm - tp, min=_TINY))  # tm > tp, both negative
+    tail = (g * g) * (g * g) * (
+        6.0 * tm * ltm
+        - tp * ltm * ltm
+        + 2.0 * (-8.0 * tm + 8.0 * tp + 4.0 * tp * ltm
+                 + ldt * (tm - tp - tp * _ln(tm / tp)))
+        - 2.0 * (2.0 * tm + 5.0 * tp) * ltp
+        + tp * ltp * ltp
+        - 2.0 * tp * sf.li2(1.0 - tm / tp)
+    ) / (128.0 * PI * tp)
+
+    if pp_tables is not None:
+        interp = pp_tables.eval_alphatilde(mtp, torch.log10(tp / tm))
+        interp = (g * g) * (g * g) * interp
+        val = torch.where(-tp < 1e4, interp, tail)
+    else:
+        val = tail  # tables unavailable: tail only (documented degradation)
+
+    mult = 8.0 if majorana else 2.0  # (:1205-1211): x2 targets (Maj),
+    # x2 (two neutrinos per scattering), x2 observable final states (Maj)
+    return torch.where(-tp > 4.0, mult * val, 0.0)
+
+
 def alphatilde_nonresonant(tm, tp, g, mphi, ga, *, majorana, phiphi,
                            pp_tables=None, channel="all"):
     """Sum of non-resonant alphaTilde channels (nuSIprop.hpp:975-1233),
     times mphi^4. Caller applies |U|^2/(2 mn). ``channel`` as in
     gamma_nonresonant ("t_u" covers t and u, whose rescue paths share the
     t-channel closed form)."""
-    _check_channel(channel, phiphi)
+    _check_channel(channel)
     gr = ga / mphi
     ok = -tp >= _COORD_FLOOR
     tm = _floor_t(tm)
@@ -505,6 +606,9 @@ def alphatilde_nonresonant(tm, tp, g, mphi, ga, *, majorana, phiphi,
         st = alphatilde_st(tm, tp, g, gr, majorana=majorana)
         # s-u interference (:1188-1192)
         parts.append(2.0 * st if majorana else st)
+    if phiphi and channel in ("all", "pp"):
+        parts.append(alphatilde_pp(tm, tp, g, majorana=majorana,
+                                   pp_tables=pp_tables))
     return torch.where(ok, _sum_parts(parts, tm), 0.0)
 
 
@@ -758,12 +862,202 @@ def alpha_st(tm, tp, smp, spp, g, gr, *, majorana: bool):
     )
 
 
+def alpha_pp_tail(tm, tp, smp_s, spp_s):
+    """Analytic large-s Taylor tails of the normalized phi-phi alpha
+    value: the three regimes in the target-bin limits
+    (nuSIprop.hpp:1487-1492). Elementwise float64; callers supply floored
+    coordinates (``smp_s >= 4``, ``spp_s > smp_s``) and select this only
+    where ``smp_s >= 1e4`` (alpha_pp_val, kernels.alpha_pp_grid)."""
+    lsm, lsp = _ln(smp_s), _ln(spp_s)
+    s2m, s2p = smp_s * smp_s, spp_s * spp_s
+    mtm = torch.clamp(-tm, min=_TINY)
+    mtp = torch.clamp(-tp, min=_TINY)
+    ltm, ltp = _ln(mtm), _ln(mtp)
+    lm1tm = _ln(torch.clamp(-1.0 - tm, min=_TINY))  # log(-1-tminus)
+    lm1tp = _ln(torch.clamp(-1.0 - tp, min=_TINY))
+
+    # Regime 1: tminus < -1 (both limits below -1), nuSIprop.hpp:1489
+    tail1 = (
+        (spp_s - smp_s) * (
+            (tm - tp) * (spp_s * (tm + tp - 2.0)
+                         + smp_s * (-2.0 - 24.0 * spp_s + tm + tp))
+            + 4.0 * (-(spp_s * (1.0 + tm))
+                     + smp_s * (-1.0 + 2.0 * spp_s + (spp_s - 1.0) * tm)) * lm1tm
+            + 2.0 * (3.0 * spp_s + smp_s * (3.0 + 4.0 * spp_s)) * tm * ltm
+            + 4.0 * (spp_s + spp_s * tp
+                     + smp_s * (1.0 + tp - spp_s * (2.0 + tp))) * lm1tp
+            - 2.0 * (3.0 * spp_s + smp_s * (3.0 + 4.0 * spp_s)) * tp * ltp
+        )
+        + 2.0 * s2m * lsp * (
+            (3.0 + 2.0 * spp_s) * (tm - tp)
+            + 2.0 * s2p * ((-1.0 - tm) * lm1tm + tm * ltm
+                           + (1.0 + tp) * lm1tp - tp * ltp)
+        )
+        + 2.0 * s2p * lsm * (
+            (-3.0 - 2.0 * smp_s) * (tm - tp)
+            + 2.0 * s2m * ((1.0 + tm) * lm1tm - tm * ltm
+                           - (1.0 + tp) * lm1tp + tp * ltp)
+        )
+    ) / (256.0 * PI * s2m * s2p)
+
+    # Regime 3: both limits above -1 (tplus >= -1), nuSIprop.hpp:1492
+    base3 = (
+        -6.0 * smp_s + 6.0 * spp_s
+        - 2.0 * (smp_s - 2.0) * spp_s * lsm
+        + smp_s * spp_s * lsm * lsm
+        + 2.0 * smp_s * (spp_s - 2.0) * lsp
+        - smp_s * spp_s * lsp * lsp
+    )
+    tail3 = (tp - tm) * base3 / (128.0 * PI * smp_s * spp_s)
+
+    # Regime 2: tplus < -1 <= tminus, nuSIprop.hpp:1491
+    tail2 = (
+        (
+            2.0 * s2m * lsp * ((1.0 + tp) * (-3.0 - 2.0 * spp_s
+                                             + 2.0 * s2p * lm1tp)
+                               - 2.0 * s2p * tp * ltp)
+            + (smp_s - spp_s) * (
+                (1.0 + tp) * (-3.0 * (smp_s + spp_s + 8.0 * smp_s * spp_s)
+                              + (smp_s + spp_s) * tp)
+                + 4.0 * (-(spp_s * (1.0 + tp))
+                         + smp_s * (-1.0 + 2.0 * spp_s
+                                    + (spp_s - 1.0) * tp)) * lm1tp
+                + 2.0 * (3.0 * spp_s + smp_s * (3.0 + 4.0 * spp_s)) * tp * ltp
+            )
+            + 2.0 * s2p * lsm * ((3.0 + 2.0 * smp_s) * (1.0 + tp)
+                                 + 2.0 * s2m * (-((1.0 + tp) * lm1tp)
+                                                + tp * ltp))
+        ) / (256.0 * PI * s2m * s2p)
+        + (-1.0 - tm) * base3 / (128.0 * PI * smp_s * spp_s)
+    )
+
+    return torch.where(tm < -1.0, tail1, torch.where(tp < -1.0, tail2, tail3))
+
+
+def alpha_pp_tail_bases(tm, tp, smp_s, spp_s):
+    """Rank-5 bilinear factorization of ``alpha_pp_tail`` for the dense
+    grid build: tail[..., s, r, c] = sum_k F[..., s, r, k] H[..., s, k, c]
+    (see the JAX docstring: the five column factors h0..h4 and the
+    per-row coefficients of each regime). Every cancellation-prone
+    combination is evaluated on ONE side in float64 before any cast, so
+    the contraction can run in the table dtype.
+
+    tm/tp: (..., 3, N) target-bin limits (floored, negative); smp_s/spp_s:
+    (..., 3, N) source-bin limits (floored, >= 4). Returns (F, H) float64,
+    (..., 3, N, 5) and (..., 3, 5, N)."""
+    a, b = tm, tp
+    x, y = smp_s, spp_s
+    lsm, lsp = _ln(x), _ln(y)
+    ltm = _ln(torch.clamp(-a, min=_TINY))
+    ltp = _ln(torch.clamp(-b, min=_TINY))
+    lm1tm = _ln(torch.clamp(-1.0 - a, min=_TINY))
+    lm1tp = _ln(torch.clamp(-1.0 - b, min=_TINY))
+
+    # row-side combinations (f64; each pre-cancelled)
+    r1 = a - b
+    r2 = (a - b) * (a + b)
+    C_m = (1.0 + a) * lm1tm - a * ltm
+    C_p = (1.0 + b) * lm1tp - b * ltp
+    D = C_m - C_p
+    E = a * ltm - b * ltp
+    RA1 = r2 - 2.0 * r1 - 4.0 * D + 2.0 * E
+    RA2 = -24.0 * r1 + 4.0 * D + 12.0 * E + 4.0 * (lm1tm - lm1tp)
+    q2 = (1.0 + b) * (b - 3.0) - 4.0 * (1.0 + b) * lm1tp + 6.0 * b * ltp
+    q3 = -24.0 * (1.0 + b) + 4.0 * (2.0 + b) * lm1tp + 8.0 * b * ltp
+
+    reg1 = a < -1.0                     # both limits below -1
+    reg2 = (~reg1) & (b < -1.0)         # straddling
+    # regime 3 (both above -1) is the fall-through
+    zero = torch.zeros_like(a)
+    f0 = torch.where(reg1, r1, torch.where(reg2, -(1.0 + b), zero))
+    f1 = torch.where(reg1, D, torch.where(reg2, -C_p, zero))
+    f2 = torch.where(reg1, zero, torch.where(reg2, -1.0 - a, b - a))
+    f3 = torch.where(reg1, RA1, torch.where(reg2, -q2, zero))
+    f4 = torch.where(reg1, RA2, torch.where(reg2, -q3, zero))
+    F = torch.stack([f0, f1, f2, f3, f4], dim=-1)        # (..., 3, N, 5)
+
+    # column-side functions (f64; base3 and the h0/h1 differences carry
+    # the cancellations of the narrow source bin)
+    base3 = (
+        -6.0 * x + 6.0 * y
+        - 2.0 * (x - 2.0) * y * lsm
+        + x * y * lsm * lsm
+        + 2.0 * x * (y - 2.0) * lsp
+        - x * y * lsp * lsp
+    )
+    inv_x2 = 1.0 / (x * x)
+    inv_y2 = 1.0 / (y * y)
+    inv_xy = inv_x2 * (x / y)
+    h0 = (lsp * (3.0 + 2.0 * y) * inv_y2
+          - lsm * (3.0 + 2.0 * x) * inv_x2) / (128.0 * PI)
+    h1 = (lsm - lsp) / (64.0 * PI)
+    h2 = base3 * inv_xy / (128.0 * PI)
+    h3 = (y - x) * (x + y) * (inv_x2 * inv_y2) / (256.0 * PI)
+    h4 = (y - x) * inv_xy / (256.0 * PI)
+    H = torch.stack([h0, h1, h2, h3, h4], dim=-2)        # (..., 3, 5, N)
+    return F, H
+
+
+def alpha_pp_val(tm, tp, smp, spp, *, pp_tables):
+    """Normalized double-scalar-production bin-to-bin value: the 3-D
+    spline for sminus' in (4, 1e4) and the analytic Taylor tails above
+    (nuSIprop.hpp:1487-1492), WITHOUT the g^4 coupling, the
+    Majorana/Dirac multiplicity and the s > 4 threshold (alpha_pp's).
+
+    The 64-point stencil contraction follows the table-values dtype
+    (``SplineND.astype``); coordinates and the tails stay float64 and are
+    cast at the join. This is the general per-query path;
+    kernels.alpha_pp_grid evaluates the same spline separably over whole
+    tables."""
+    smp_s = torch.clamp(smp, min=4.0 + 1e-12)
+    spp_s = torch.maximum(spp, smp_s * (1.0 + 1e-12))
+    mtm = torch.clamp(-tm, min=_TINY)
+    tail = alpha_pp_tail(tm, tp, smp_s, spp_s)
+
+    if pp_tables is not None:
+        delta = spp_s / smp_s
+        n_coord = _ln(smp_s / mtm) / _ln(delta) * 1.0001
+        interp = torch.abs(pp_tables.eval_alpha(smp_s, n_coord,
+                                                torch.log10(delta)))
+        val = torch.where(smp_s < 1e4, interp, tail.to(interp.dtype))
+    else:
+        val = tail
+    return val
+
+
+def alpha_pp(tm, tp, smp, spp, g, *, majorana: bool, pp_tables):
+    """Double scalar production (nuSIprop.hpp:1476-1503): alpha_pp_val
+    with the g^4 coupling and the multiplicity applied in float64."""
+    val = alpha_pp_val(tm, tp, smp, spp, pp_tables=pp_tables)
+    val = (g * g) * (g * g) * val
+    mult = 8.0 if majorana else 2.0  # same multiplicities as alphaTilde_pp
+    return torch.where(smp > 4.0, mult * val, 0.0)
+
+
+def alpha_pp_norm(tm, tp, smp, spp, *, majorana: bool, pp_tables):
+    """``alpha_pp`` WITHOUT the g^4 coupling, with the coordinate floors
+    and range mask that ``alpha_nonresonant(channel="pp")`` applies: the
+    pp channel's normalized contribution to the native-f32 march's
+    (A32, pref = g^4) table (kernels.alpha_pp_table_norm). Stays in the
+    spline-values dtype end to end."""
+    ok = (-tp >= _COORD_FLOOR) & (spp >= _COORD_FLOOR)
+    tm = _floor_t(tm)
+    tp = _floor_t(tp)
+    smp = _floor_s(smp)
+    spp = _floor_s(spp)
+    val = alpha_pp_val(tm, tp, smp, spp, pp_tables=pp_tables)
+    mult = torch.tensor(8.0 if majorana else 2.0, dtype=val.dtype,
+                        device=val.device)
+    zero = torch.zeros((), dtype=val.dtype, device=val.device)
+    return torch.where(ok & (smp > 4.0), mult * val, zero)
+
+
 def alpha_nonresonant(tm, tp, smp, spp, g, mphi, ga, *, majorana, phiphi,
                       pp_tables=None, channel="all"):
     """Sum of non-resonant alpha channels (nuSIprop.hpp:1280-1518), times
     mphi^4. Caller applies |U|^2/(2 mn). ``channel`` as in
     gamma_nonresonant."""
-    _check_channel(channel, phiphi)
+    _check_channel(channel)
     gr = ga / mphi
     ok = (-tp >= _COORD_FLOOR) & (spp >= _COORD_FLOOR)
     tm = _floor_t(tm)
@@ -780,4 +1074,7 @@ def alpha_nonresonant(tm, tp, smp, spp, g, mphi, ga, *, majorana, phiphi,
     if channel in ("all", "st"):
         st = alpha_st(tm, tp, smp, spp, g, gr, majorana=majorana)
         parts.append(2.0 * st if majorana else st)  # s-u interference (:1474)
+    if phiphi and channel in ("all", "pp"):
+        parts.append(alpha_pp(tm, tp, smp, spp, g, majorana=majorana,
+                              pp_tables=pp_tables))
     return torch.where(ok, _sum_parts(parts, tm), 0.0)

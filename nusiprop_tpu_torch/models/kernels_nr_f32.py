@@ -126,18 +126,23 @@ def _near(vm, vp, gr2, ds):
 
 
 def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
-                    raw: bool = False):
+                    raw: bool = False, width_factor=None):
     """Non-resonant alpha table (s + t/u + tu + st/su channels) in native
     float32.
 
     Default: the float64 (..., N, N) strict-upper table with its g^4
     prefactor applied. ``raw=True`` returns ``(table32, pref)`` — the
     NORMALIZED float32 table and its float64 g^4 prefactor — for the
-    native-f32 trisolve march. ``Wf`` is the (3,) |U_f|^2 row (the
-    per-state and column-block forms are later slices of the port).
+    native-f32 trisolve march. ``Wf`` is the (3,) |U_f|^2 row;
+    ``Wf=None`` skips the eigenstate reduction and returns the per-state
+    (..., 3, N, N) float64 table (general couplings), where
+    ``width_factor`` scales the scalar width by sum(Q). The column-block
+    form of the storage-sharded march is a later slice of the port.
     """
     dev = Em.device
     ga = scalar_width(g, mphi, majorana)
+    if width_factor is not None:  # general couplings: width ~ sum(Q)
+        ga = ga * width_factor
     N = Em.shape[0]
     r_np, c_np = np.triu_indices(N, k=1)
     rows = torch.as_tensor(r_np, device=dev)
@@ -294,9 +299,16 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
 
     # ---- eigenstate reduction and assembly ----
     pref = (g * g) * (g * g)
+    flat = rows * N + cols
+    if Wf is None:  # per-state (..., 3, N, N) for general couplings
+        res_s = (f(1.0 / (2.0 * mn_c)) * tot).to(torch.float64) \
+            * pref[..., None, None]
+        out = torch.zeros(res_s.shape[:-1] + (N * N,), dtype=torch.float64,
+                          device=dev)
+        out[..., flat] = res_s
+        return out.reshape(res_s.shape[:-1] + (N, N))
     w_e = f(Wf[:, None] / (2.0 * mn_c))
     res32 = torch.sum(w_e * tot, dim=-2)  # (..., NT) f32, normalized by g^4
-    flat = rows * N + cols
     batch = res32.shape[:-1]
     if raw:
         out32 = torch.zeros(batch + (N * N,), dtype=F32, device=dev)

@@ -41,3 +41,19 @@ def pmns_sq(normal_ordering: bool = True) -> np.ndarray:
     U = pmns(normal_ordering)
     return np.abs(U) ** 2
 
+
+def flavor_coupling_to_Q(G_flavor, normal_ordering: bool = True) -> np.ndarray:
+    """Mass-basis coupling-squared matrix from a flavor-space texture.
+
+    For the Majorana bilinear nu_a nu_b phi with symmetric flavor matrix
+    G (entries relative to the overall scale params.g), the mass-basis
+    couplings are g_ij = (U^T G U)_ij and Q_ij = |g_ij|^2 feeds
+    transport.evolve_general. The reference's single-flavor case
+    G = e_f e_f^T gives Q = w w^T with w = |U[f]|^2 exactly.
+    """
+    U = pmns(normal_ordering)
+    G = np.asarray(G_flavor, dtype=np.complex128)
+    if G.shape != (3, 3):
+        raise ValueError(f"G_flavor must be (3, 3), got {G.shape}")
+    gm = U.T @ G @ U
+    return np.abs(gm) ** 2

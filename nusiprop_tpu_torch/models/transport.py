@@ -25,15 +25,19 @@ Every march mode of ``Config`` runs:
   ``_z_step_rank1``;
 * ``rank1_f32``: its free-streaming preconditioned float32 form.
 
+The phi-phi channel (``cfg.phiphi`` on a non-resonant config) joins every
+non-resonant table build from the spline tables of ``models/pp_tables``;
+``Config(extrapolation="raise")`` refuses a batch whose lookups leave
+those tables, before anything is built. ``evolve_general`` runs a general
+mass-basis coupling matrix Q through its own float64 march.
+
 The JAX ``lax.associative_scan`` becomes the Hillis-Steele doubling of
-``_prefix_affine`` and the JAX vmap a leading batch axis. The phi-phi
-channel (slice D of the port) raises ``NotImplementedError``.
+``_prefix_affine`` and the JAX vmap a leading batch axis.
 
 Shapes: every function takes ``PhysicsParams`` whose fields share one
 batch shape (``()`` or ``(B,)``); that shape leads every output.
 """
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -42,6 +46,7 @@ import torch
 from nusiprop_tpu_torch.config import Config, PhysicsParams
 from nusiprop_tpu_torch.models import (grids, kernels, kernels_f32, masses,
                                        mixing, sources)
+from nusiprop_tpu_torch.ops.precision import exact_f32_matmul
 
 # bins coarser than this keep the f64 closed forms (the f32 GL3 table
 # build's error scales as bin-width^6; transport._use_f32_alpha in JAX)
@@ -96,9 +101,6 @@ def _table_health(tables, tau):
     return torch.stack([worst, bad, tau.to(torch.float64)], dim=-1)
 
 
-_PP_SLICE = "phi-phi channel tables are slice D (ROADMAP queue 1 item 11)"
-
-
 def _resolve_march(cfg: Config, device) -> str:
     """The march this port runs for ``cfg`` on ``device``.
 
@@ -131,36 +133,32 @@ def _channels(cfg: Config):
     if not cfg.non_resonant:
         return ("s",)
     if cfg.phiphi:
-        raise NotImplementedError(_PP_SLICE)
+        return ("s", "t_u", "tu", "st", "pp")
     return ("s", "t_u", "tu", "st")
 
 
-def _use_f32_alpha(cfg: Config, device) -> bool:
-    """Whether the f64 ``trisolve`` march takes the native-f32 quadrature
-    alpha table (kernels_nr_f32) instead of the f64 closed forms: only
-    when forced with ``table_dtype="f32"``. ``"auto"`` keeps the closed
-    forms under an explicit or resolved ``"trisolve"`` on every device
-    (what the JAX package does off the TPU)."""
+def _use_f32_alpha(cfg: Config, device, allow_f32_march=False) -> bool:
+    """Whether the f64 ``trisolve`` march (and, with ``allow_f32_march``,
+    the per-state build of general couplings under ``trisolve_f32``)
+    takes the native-f32 quadrature alpha table (kernels_nr_f32) instead
+    of the f64 closed forms: only when forced with ``table_dtype="f32"``.
+    ``"auto"`` keeps the closed forms under an explicit or resolved
+    ``"trisolve"`` on every device (what the JAX package does off the
+    TPU)."""
     if not cfg.non_resonant or cfg.table_dtype != "f32":
         return False
-    return _resolve_march(cfg, device) == "trisolve"
+    ok = ("trisolve", "trisolve_f32") if allow_f32_march else ("trisolve",)
+    return _resolve_march(cfg, device) in ok
 
 
-@contextlib.contextmanager
-def _exact_f32_matmul():
-    """float32 products at full precision inside the block, whatever the
-    process-wide TF32 switch says (the JAX march pins Precision.HIGHEST on
-    every product): ``torch.backends.cuda.matmul.allow_tf32`` is cleared
-    and put back, and left untouched where it is already off."""
-    mm = torch.backends.cuda.matmul
-    was_on = bool(mm.allow_tf32)
-    if was_on:
-        mm.allow_tf32 = False
-    try:
-        yield
-    finally:
-        if was_on:
-            mm.allow_tf32 = True
+def _pp_f32(pp_tables):
+    """phi-phi tables with the 3-D alpha spline values cast to float32:
+    the float32 builds contract the stencil in float32 (~1e-7 relative
+    against the 1e-3 physics gate). The O(N) 2-D alphaTilde spline stays
+    float64."""
+    if pp_tables is None:
+        return None
+    return pp_tables._replace(alpha=pp_tables.alpha.astype(torch.float32))
 
 
 def _solve3(M, b):
@@ -292,7 +290,18 @@ def _f32_precond_common(cfg: Config, gr, params: PhysicsParams,
     src_counts = w(pref_a[:, None] * lum_a)
     S = w(torch.cumsum(src_counts, dim=-2))
     N0 = torch.amax(S, dim=(-2, -1), keepdim=True)
-    S = torch.clamp(w(S / N0), min=1e-15)
+    # A source that is zero on every bin and node (the DSNB far above its
+    # thermal cut-off, as over the wrapper's default lE in [12, 17]) has no
+    # free-streaming scale, and S / N0 is 0/0 (the JAX rows give NaN
+    # there). It is preconditioned instead as a source of one count per eV
+    # would be, which keeps every row in its usual range, and its flux
+    # marches as the zero it is.
+    live = N0 > 0
+    S_unit = w(torch.cumsum(pref_a[:, None] / inv_dE[None, :], dim=-2))
+    N0_unit = torch.amax(S_unit, dim=(-2, -1), keepdim=True)
+    N0 = torch.where(live, N0, N0_unit)
+    S = torch.clamp(w(torch.where(live, S / N0, S_unit / N0_unit)),
+                    min=1e-15)
     S_old = torch.cat([torch.zeros_like(S[..., :1, :]), S[..., :-1, :]],
                       dim=-2)
     N0S = w(N0 * S)
@@ -439,7 +448,7 @@ def _nilpotent_solve(N, q):
     block back-substitution runs one row-block matvec against the blocks
     already solved and one inverse apply per block. Every entry of N is
     non-negative, so all Neumann sums are cancellation-free. Call it
-    under ``_exact_f32_matmul``."""
+    under ``exact_f32_matmul``."""
     NE = q.shape[-1]
     BS = min(_SOLVE_BS, NE)
     NB = -(-NE // BS)
@@ -492,7 +501,7 @@ def _trisolve_f32_scan(xs, A32ext, W, NE: int):
     n_steps = xs[0].shape[-2]
     phi = torch.zeros(xs[0].shape[:-2] + (3, NE), dtype=torch.float32,
                       device=dev)
-    with _exact_f32_matmul():
+    with exact_f32_matmul():
         for t in range(n_steps):
             PG, PAt, CO, R0, S0, CS, PT = (x[..., t, :] for x in xs[:7])
             off = n_steps - 1 - t            # window start, node i = off + 1
@@ -521,7 +530,7 @@ def _trisolve_f32_scan(xs, A32ext, W, NE: int):
 
 
 def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
-                 mn=None):
+                 mn=None, per_state=False, width_factor=1.0):
     """Kernel tables ``(tblG, tblAt, tblA)`` of the trisolve and loop
     marches (the JAX ``build_tables``), built channel by channel in one
     order of summation (the sum's association is part of the result at
@@ -529,58 +538,82 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
 
     * ``trisolve_pallas`` and ``trisolve_f32``: the float64 (..., NEXT)
       Gamma/alphaTilde tables of the native-f32 build, plus for Dirac the
-      f64 s-t/s-u alphaTilde channel, and ``tblA = (A32, pref_A)``: the
-      NORMALIZED float32 (..., NEXT, NEXT) alpha table with its float64
-      g^4 prefactor;
+      f64 s-t/s-u alphaTilde channel and with phi-phi the f64 pp Gamma and
+      alphaTilde channels, and ``tblA = (A32, pref_A)``: the NORMALIZED
+      float32 (..., NEXT, NEXT) alpha table with its float64 g^4
+      prefactor, the pp channel folded in normalized (float32 spline);
     * ``trisolve`` with ``table_dtype="f32"``: the same Gamma/alphaTilde
       and the f32 quadrature alpha table with its prefactor applied, in
-      float64;
-    * ``trisolve`` and ``loop`` otherwise: the f64 closed forms, summed
-      over ``_channels(cfg)``.
+      float64, plus the pp channel from the float32 spline;
+    * ``trisolve`` and ``loop`` otherwise: the f64 closed forms (and the
+      float64 spline), summed over ``_channels(cfg)``.
 
-    The rank1 marches build their factorized tables inside
-    ``evolve_core`` and raise here. ``mn`` is the mass spectrum where the
-    caller has it already (a 200-step bisection otherwise).
+    ``per_state=True`` (general couplings, ``evolve_general``) keeps the
+    bath-eigenstate axis, (..., 3, NEXT) and (..., 3, NEXT, NEXT) float64,
+    for any march, with the scalar width scaled by ``width_factor``
+    (sum(Q)). Otherwise the rank1 marches build their factorized tables
+    inside ``evolve_core`` and raise here. ``mn`` is the mass spectrum
+    where the caller has it already (a 200-step bisection otherwise);
+    ``pp_tables`` (``models/pp_tables``) sit on the params' device.
     """
     from nusiprop_tpu_torch.models import kernels_nr_f32
 
     march = _resolve_march(cfg, params.device)
-    if march in ("rank1", "rank1_f32"):
+    if march in ("rank1", "rank1_f32") and not per_state:
         raise ValueError(
             f"build_tables builds the trisolve and loop marches' tables; "
             f"march={march!r} builds its own inside evolve_core")
-    if pp_tables is not None or (cfg.phiphi and cfg.non_resonant):
-        raise NotImplementedError(_PP_SLICE)
     dev = params.device
     gr = grids.build(cfg, dev)
-    Wf = torch.as_tensor(mixing.pmns_sq(cfg.normal_ordering)[cfg.flav],
-                         device=dev)
+    Wf = None if per_state else torch.as_tensor(
+        mixing.pmns_sq(cfg.normal_ordering)[cfg.flav], device=dev)
     if mn is None:
         mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
     args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+    wkw = dict(width_factor=width_factor) if per_state else {}
     kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
-              phiphi=cfg.phiphi)
-    use_f32_march = march in ("trisolve_f32", "trisolve_pallas")
-    use_f32_alpha = _use_f32_alpha(cfg, dev)
-
-    if use_f32_march or use_f32_alpha:
-        tblG, tblAt = kernels_nr_f32.nr_gamma_alphatilde_f32(
-            *args, majorana=cfg.majorana)
-        if not cfg.majorana:
-            # Dirac keeps the alphaTilde s-t/s-u interference in f64
-            tblAt = tblAt + kernels.alphatilde_table(*args, channel="st",
-                                                     **kw)
-        tblA = kernels_nr_f32.alpha_table_f32(
-            *args, majorana=cfg.majorana, raw=use_f32_march)
-        return tblG, tblAt, tblA
+              phiphi=cfg.phiphi, pp_tables=pp_tables, **wkw)
+    pp = cfg.phiphi and cfg.non_resonant
+    use_f32_march = (not per_state
+                     and march in ("trisolve_f32", "trisolve_pallas"))
+    use_f32_alpha = _use_f32_alpha(cfg, dev, allow_f32_march=per_state)
+    gt32 = (kernels_nr_f32.nr_gamma_alphatilde_f32(*args,
+                                                    majorana=cfg.majorana)
+            if not per_state and (use_f32_march or use_f32_alpha) else None)
 
     out = []
-    for fn in (kernels.gamma_table, kernels.alphatilde_table,
-               kernels.alpha_table):
-        acc = None
-        for ch in _channels(cfg):
-            t = fn(*args, channel=ch, **kw)
-            acc = t if acc is None else acc + t
+    for i, (table, fn) in enumerate((("gamma", kernels.gamma_table),
+                                     ("alphatilde", kernels.alphatilde_table),
+                                     ("alpha", kernels.alpha_table))):
+        if table != "alpha" and gt32 is not None:
+            acc = gt32[i]
+            # Dirac keeps the alphaTilde s-t/s-u interference in f64; the
+            # pp Gamma/alphaTilde channels stay f64 on every path
+            extra = ["st"] if table == "alphatilde" and not cfg.majorana \
+                else []
+            extra += ["pp"] if pp else []
+            for ch in extra:
+                acc = acc + fn(*args, channel=ch, **kw)
+        elif table == "alpha" and use_f32_march:
+            a32, pref = kernels_nr_f32.alpha_table_f32(
+                *args, majorana=cfg.majorana, raw=True)
+            if pp:
+                # pref IS g^4: the pp channel joins normalized, in float32
+                a32 = a32 + kernels.alpha_pp_table_norm(
+                    gr.Emin_ext, gr.Emax_ext, mn, params.mphi, Wf,
+                    majorana=cfg.majorana, pp_tables=_pp_f32(pp_tables))
+            acc = (a32, pref)
+        elif table == "alpha" and use_f32_alpha:
+            acc = kernels_nr_f32.alpha_table_f32(
+                *args, majorana=cfg.majorana, **wkw)
+            if pp:
+                acc = acc + fn(*args, channel="pp",
+                               **dict(kw, pp_tables=_pp_f32(pp_tables)))
+        else:
+            acc = None
+            for ch in _channels(cfg):
+                t = fn(*args, channel=ch, **kw)
+                acc = t if acc is None else acc + t
         out.append(acc)
     return tuple(out)
 
@@ -597,10 +630,9 @@ def evolve_core(params: PhysicsParams, cfg: Config, march: str,
     already; ``rank1_f32`` with table_dtype "auto"/"f32" takes the
     native-f32 s-channel tables (kernels_f32); ``rank1``, and
     ``rank1_f32`` with f64 tables, the f64 s-channel closed forms with
-    the rank-one alpha factor rho (scaled by 2^100).
+    the rank-one alpha factor rho (scaled by 2^100). ``pp_tables`` feed
+    the phi-phi channel of the non-resonant tables (inert elsewhere).
     """
-    if pp_tables is not None:
-        raise NotImplementedError(_PP_SLICE)
     dev = params.device
     gr = grids.build(cfg, dev)
     NE = cfg.N_bins_E
@@ -637,7 +669,8 @@ def evolve_core(params: PhysicsParams, cfg: Config, march: str,
     elif march in ("trisolve", "trisolve_f32", "loop"):
         if tables is None:
             tables = build_tables(
-                params, dataclasses.replace(cfg, march=march), mn=mn)
+                params, dataclasses.replace(cfg, march=march),
+                pp_tables=pp_tables, mn=mn)
         if march == "trisolve_f32":
             tblG, tblAt, (A32ext, pref_A) = tables
         else:
@@ -780,6 +813,33 @@ def _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE):
     return flx
 
 
+def check_pp_extrapolation(params: PhysicsParams, cfg: Config, pp_tables):
+    """Enforce ``Config(extrapolation="raise")``: count the phi-phi spline
+    lookups that leave the tables (the reference exits there,
+    interp.hpp:354-361) on the device over the whole batch, and raise on
+    the host if any fired (one synchronization). A no-op where the config
+    has no phi-phi spline path. ``pp_tables`` sit on the params'
+    device."""
+    if pp_tables is None or not (cfg.phiphi and cfg.non_resonant):
+        return
+    gr = grids.build(cfg, params.device)
+    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+    ca, cat = kernels.pp_extrapolation_counts(
+        gr.Emin_ext, gr.Emax_ext, mn, params.mphi,
+        pp_tables=pp_tables)
+    ca, cat = (int(c) for c in torch.stack([ca.sum(), cat.sum()]).cpu())
+    if ca or cat:
+        raise RuntimeError(
+            f"phi-phi table extrapolation: {ca} alpha and {cat} "
+            "alphaTilde lookups fall outside the loaded tables (the "
+            "reference would exit(1) here, interp.hpp:354-361). Likely "
+            "cause: the bin ratio (log10 delta = "
+            f"{(cfg.lEmax - cfg.lEmin) / cfg.N_bins_E:.4g} decades) or "
+            "energy window is outside the table axes. Regenerate wider "
+            "tables (tools/make_tables.py) or use "
+            "Config(extrapolation='clamp') to accept clamping.")
+
+
 def evolve_batched(params: PhysicsParams, cfg: Config,
                    pp_tables=None) -> EvolveResult:
     """Evolve a batch of points (fields with one leading batch axis)
@@ -788,7 +848,17 @@ def evolve_batched(params: PhysicsParams, cfg: Config,
     and ``rank1`` on CUDA tensors through ``ops/march_ds``, which takes at
     most 8192 bins and raises above that, before anything is built (ask
     for ``march="loop"`` or ``"trisolve"`` there, or for CPU tensors);
-    ``evolve_core`` runs the rest, and ``rank1`` on CPU tensors."""
+    ``evolve_core`` runs the rest, and ``rank1`` on CPU tensors.
+
+    ``pp_tables`` move to the params' device (a no-op where they are
+    already there). Under ``Config(extrapolation="raise")`` a batch whose
+    phi-phi lookups leave the tables raises ``RuntimeError`` before
+    anything is built (the JAX package checks in ``evolve`` and
+    ``evolve_general`` only; here every entry point checks)."""
+    if pp_tables is not None:
+        pp_tables = pp_tables.to(params.device)
+    if cfg.extrapolation == "raise":
+        check_pp_extrapolation(params, cfg, pp_tables)
     march = _resolve_march(cfg, params.device)
     if march == "trisolve_pallas":
         from nusiprop_tpu_torch.ops import march_tri
@@ -808,6 +878,111 @@ def evolve(params: PhysicsParams, cfg: Config, pp_tables=None) -> EvolveResult:
     res = evolve_batched(params.map(lambda x: x[None]), cfg,
                          pp_tables=pp_tables)
     return EvolveResult(*(x[0] for x in res))
+
+
+def _march_general(params: PhysicsParams, Q, tables,
+                   cfg: Config) -> EvolveResult:
+    """Implicit float64 march for a general mass-basis coupling matrix,
+    batched over the leading axis of ``params``.
+
+    Q[i, j] = |g_ij|^2 / g^2 (symmetric, non-negative, (3, 3) float64 on
+    the params' device): the squared coupling of mass eigenstates (i, j)
+    to the scalar relative to params.g. The reference's flavor-diagonal
+    case is Q = w w^T with w = |U[flav]|^2. Absorption of eigenstate k on
+    bath j weighs as Q[k, j]; regeneration nu_l + bath -> phi -> nu_k +
+    nu_n weighs as the Q-contracted table times the branching
+    B_k = sum_n Q[k, n] / sum(Q); each 2->2 process carries
+    g^4 Q_prod sum(Q) B, so the contraction weight is Q sum(Q) (the JAX
+    docstring; docs/DESIGN.md). The per-bin update stays affine in one
+    scalar regeneration feed, so each node closes into one triangular
+    solve. ``tables``: build_tables(per_state=True)."""
+    dev = params.device
+    gr = grids.build(cfg, dev)
+    NE = cfg.N_bins_E
+    Nz = gr.N_steps_z
+    Wsq = torch.as_tensor(mixing.pmns_sq(cfg.normal_ordering), device=dev)
+    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+    norm_total = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
+
+    tblG_s, tblAt_s, tblA_s = tables   # (..., 3, NEXT), (..., 3, NEXT, NEXT)
+    sumQ = torch.sum(Q)
+    Qs = Q * sumQ
+    Geff = torch.matmul(Qs, tblG_s)                # (..., 3, NEXT)
+    Ateff = torch.matmul(Qs, tblAt_s)
+    Aeff = torch.einsum("lb,...bjm->...ljm", Qs, tblA_s)
+    Bk = torch.sum(Q, dim=1) / sumQ                # decay branching to k
+
+    inv_dE = 1.0 / (gr.Emax - gr.Emin)
+    eye3 = torch.eye(3, dtype=torch.float64, device=dev)
+    offd = 1.0 - eye3
+    eyeNE = torch.eye(NE, dtype=torch.float64, device=dev)
+    steps_z = torch.flip(gr.z[1:], dims=(0,))      # z[Nz-1], ..., z[1]
+    lum_all = _source_lum(cfg, gr, steps_z, params.si, norm_total)
+    flux = torch.zeros(params.mphi.shape + (3, NE), dtype=torch.float64,
+                       device=dev)
+    for t, i in enumerate(range(Nz - 1, 0, -1)):
+        lum = lum_all[..., t, :]
+        zim = gr.z[i - 1]
+        ndfac = sources.get_nd(zim) / (1.0 + zim) ** 2
+        pref = (1.0 + zim) * gr.dlogz / sources.get_H(zim)
+        win = slice(i - 1, i - 1 + NE)
+        G_i = Geff[..., win] * ndfac
+        At_i = Ateff[..., win] * ndfac
+        A_i = Aeff[..., win, win] * ndfac
+
+        # Zdr[k, j]: absorption minus self-regeneration (nuSIprop.hpp:294
+        # with Wf_k -> B_k, Wf-weighted tables -> Q-contracted tables)
+        Zdr = 1.0 + pref * (G_i - Bk[:, None] * At_i) * inv_dE
+        zdr_t = Zdr.transpose(-1, -2)              # (..., NE, 3)
+        # M[j, k, l] = delta_kl + offd * B_k At_i[l, j] / dE_j / Zdr[k, j]
+        M = eye3 + offd * (
+            Bk[:, None] * At_i.transpose(-1, -2)[..., :, None, :]
+            * inv_dE[:, None, None] / zdr_t[..., :, :, None])
+        U = _solve3(M, pref * Bk / zdr_t)          # (..., NE, 3)
+        V = _solve3(M, (flux.transpose(-1, -2) + pref * lum[..., None])
+                    / zdr_t)
+
+        # scalar feed r_j = sum_{m>j} sum_l x[l, m] Aeff[l, j, m] / dE_m,
+        # x = V + r U  ->  (I - Ku) r = Kv 1  (strict upper triangular)
+        K = A_i * inv_dE                           # (..., 3, NE, NE)
+        Ut, Vt = U.transpose(-1, -2), V.transpose(-1, -2)
+        Ku = _sum3(torch.stack([Ut[..., l, None, :] * K[..., l, :, :]
+                                for l in range(3)], dim=-1))
+        Kv = _sum3(torch.stack([Vt[..., l, None, :] * K[..., l, :, :]
+                                for l in range(3)], dim=-1))
+        rv = torch.sum(Kv, dim=-1)
+        r = torch.linalg.solve_triangular(eyeNE - Ku, rv[..., None],
+                                          upper=True, unitriangular=True)
+        flux = (V + r * U).transpose(-1, -2)
+
+    flux = flux * inv_dE
+    health = _table_health([Geff, Ateff, Aeff],
+                           _march_tau(gr, Geff.flatten(-2)))
+    return _result(flux, gr, Wsq, mn, health)
+
+
+def evolve_general(params: PhysicsParams, Q, cfg: Config,
+                   pp_tables=None) -> EvolveResult:
+    """Evolve with a non-diagonal mass-basis coupling matrix Q (3, 3),
+    Q[i, j] = |g_ij|^2 / params.g^2, for one point (scalar params) or a
+    batch (params with a leading axis). The scalar decay width scales
+    with sum(Q) (all open decay channels). Reduces to ``evolve`` for
+    Q = w w^T with w = |U[cfg.flav]|^2 (tests/test_general_coupling.py).
+    Every ``Config`` march name runs this one float64 march."""
+    Q = torch.as_tensor(Q, dtype=torch.float64, device=params.device)
+    if Q.shape != (3, 3):
+        raise ValueError(f"Q must be (3, 3), got {tuple(Q.shape)}")
+    single = params.mphi.dim() == 0
+    if single:
+        params = params.map(lambda x: x[None])
+    if pp_tables is not None:
+        pp_tables = pp_tables.to(params.device)
+    if cfg.extrapolation == "raise":
+        check_pp_extrapolation(params, cfg, pp_tables)
+    tables = build_tables(params, cfg, pp_tables=pp_tables, per_state=True,
+                          width_factor=torch.sum(Q))
+    res = _march_general(params, Q, tables, cfg)
+    return EvolveResult(*(x[0] for x in res)) if single else res
 
 
 def check_energy_conservation(params: PhysicsParams, cfg: Config,

@@ -147,8 +147,9 @@ def kernel_config(NE: int) -> dict:
 def evolve_trisolve_fused(params: PhysicsParams, cfg: Config,
                           pp_tables=None):
     """Batched evolve through the fused trisolve march (params fields
-    carry a leading batch axis): transport.build_tables, the f32 rows,
-    and ``march_tri``."""
+    carry a leading batch axis): transport.build_tables (with the phi-phi
+    channel from ``pp_tables`` where the config has it), the f32 rows, and
+    ``march_tri``."""
     mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
     tables = transport.build_tables(params, cfg, pp_tables=pp_tables, mn=mn)
     return march_fused_with_tables(params, tables, cfg, mn=mn)

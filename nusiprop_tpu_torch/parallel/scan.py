@@ -39,8 +39,9 @@ def grid_scan(params: PhysicsParams, cfg, chunk_size: int | None = None,
     axis); returns an EvolveResult whose fields carry that axis.
 
     Every march runs through ``transport.evolve_batched``: the two fused
-    kernel marches on the card, the batched ``evolve_core`` for the rest;
-    it raises for the phi-phi channel, which this port does not run yet.
+    kernel marches on the card, the batched ``evolve_core`` for the rest.
+    ``pp_tables`` (``models/pp_tables``, shared by every point) feed the
+    phi-phi channel; they move to the params' device once per call.
     ``chunk_size=k`` builds the tables and marches k points at a time,
     which bounds the peak memory of the eager table build at large batch
     (the float64 closed-form build most of all). The result equals the
@@ -48,6 +49,8 @@ def grid_scan(params: PhysicsParams, cfg, chunk_size: int | None = None,
     and to round-off where a batched product or triangular solve sums in
     an order that depends on the batch size (trisolve, trisolve_f32)."""
     batch = params.mphi.shape[0]
+    if pp_tables is not None:
+        pp_tables = pp_tables.to(params.device)
     if not chunk_size or chunk_size >= batch:
         return transport.evolve_batched(params, cfg, pp_tables=pp_tables)
     parts = [transport.evolve_batched(

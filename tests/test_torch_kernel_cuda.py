@@ -15,7 +15,10 @@ K2's inputs are the port's float64 rows of the s-channel config on the
 same energy window; gate: gated relative < 1e-10 (mask 1e-25 of the max):
 the kernel composes the affine maps hierarchically (thread, warp, block)
 and the twin by doubling over all bins, so they agree to float64
-round-off.
+round-off. The phi-phi tests run K1 on tables with the pp channel of the
+packaged spline tables folded in (48 bins over lE in [12, 14], where the
+channel opens), hold the spline's float32 products to the same table
+under the TF32 switch, and run the wrapper's default ``Evolver``.
 """
 
 import numpy as np
@@ -221,3 +224,75 @@ def test_trisolve_f32_matches_kernel_on_card(majorana):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
     assert _gated_rel(k1.flux_fla, f32.flux_fla) < 5e-5
+
+
+# phi-phi where the channel opens (s = 2 mn E / mphi^2 > 4) and the lookups
+# stay inside the packaged tables (0.042 decades per bin)
+PP_KW = dict(N_bins_E=48, lEmin=12.0, lEmax=14.0, zmax=5.0,
+             non_resonant=True, phiphi=True, source="powerlaw")
+
+
+def _pp_tables(dev):
+    from nusiprop_tpu_torch.models import pp_tables
+
+    return pp_tables.load_default().to(dev)
+
+
+def test_phiphi_grid_scan_launches_k1_once_on_card():
+    """A phi-phi batch through grid_scan: one K1 launch on the tables with
+    the pp channel folded in, < 5e-5 gated from the eager trisolve_f32
+    march on the same points, and visibly apart from phi-phi off."""
+    dev = _card()
+    ppt = _pp_tables(dev)
+    params = nt.param_grid([6e5, 1.2e6], [3e-2], mntot=0.1, si=2.5,
+                           norm=1.0, device=dev)
+    before = march_tri.march_tri.launches
+    res = nt.grid_scan(params, Config(**PP_KW), pp_tables=ppt)
+    assert march_tri.march_tri.launches == before + 1
+    assert bool(torch.isfinite(res.flux).all()) and bool((res.flux >= 0).all())
+    f32 = nt.grid_scan(params, Config(**PP_KW, march="trisolve_f32"),
+                       pp_tables=ppt)
+    assert _gated_rel(f32.flux_fla, res.flux_fla) < 5e-5
+    off = nt.grid_scan(params, Config(**dict(PP_KW, phiphi=False)))
+    assert _gated_rel(off.flux_fla, res.flux_fla) > 1e-2
+
+
+def test_pp_spline_products_ignore_the_tf32_switch_on_card():
+    """The separable spline's float32 products run in true float32: the
+    phi-phi table is the same with the TF32 switch on and off, and the
+    switch is put back."""
+    from nusiprop_tpu_torch.models import kernels, masses
+
+    dev = _card()
+    ppt = _pp_tables(dev)
+    spl32 = ppt._replace(alpha=ppt.alpha.astype(torch.float32))
+    gr = grids.build(Config(**PP_KW), dev)
+    mn = masses.mass_spectrum(torch.tensor([0.1, 0.1], dtype=torch.float64,
+                                           device=dev), True)
+    mphi = torch.tensor([6e5, 1.2e6], dtype=torch.float64, device=dev)
+    tabs = {}
+    was = bool(torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            tabs[tf32] = kernels.alpha_pp_grid(
+                gr.Emin_ext, gr.Emax_ext, mn, mphi, majorana=True,
+                pp_tables=spl32)
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert tabs[True].dtype == torch.float32 and bool(tabs[True].any())
+    assert torch.equal(tabs[True], tabs[False])
+
+
+def test_evolver_defaults_run_on_card():
+    """nt.Evolver(mphi, g, mntot, si) with the wrapper's defaults (300
+    bins over lE in [12, 17], dsnb, phi-phi on with the packaged tables)
+    runs on the card through K1, once."""
+    _card()
+    before = march_tri.march_tri.launches
+    ev = nt.Evolver(6e5, 0.03, 0.1, 2.5).evolve()
+    assert march_tri.march_tri.launches == before + 1
+    assert ev.device.type == "cuda" and ev._pp_tables.device.type == "cuda"
+    f = ev.get_flux_fla()
+    assert f.shape == (3, 300) and np.isfinite(f).all() and (f >= 0).all()

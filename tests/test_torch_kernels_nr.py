@@ -145,12 +145,30 @@ def test_dispatcher_matches_jax(fn, channel, majorana):
 
 
 @pytest.mark.parametrize("fn", list(DISPATCH))
-def test_dispatcher_refuses_phiphi(fn):
+def test_dispatcher_serves_phiphi(fn):
+    """Before the phi-phi slice the dispatchers refused ``phiphi=True``
+    and ``channel="pp"``; now they serve both (without tables the alpha
+    and alphaTilde pp channels are their analytic tails, as in JAX):
+    ``phiphi=True`` adds exactly the "pp" channel to the others, it equals
+    JAX's dispatcher, and only an unknown channel is refused."""
     coords = list(map(_t, DISPATCH[fn]))
-    for kw in (dict(phiphi=True), dict(phiphi=False, channel="pp")):
-        with pytest.raises(NotImplementedError, match="slice D"):
-            getattr(kernels_nr, fn)(*coords, _t(G), _t(1.0), _t(GA),
-                                    majorana=True, **kw)
+    args = (_t([G]), _t([1.0]), _t([GA]))
+    both = getattr(kernels_nr, fn)(*coords, *args, majorana=True,
+                                   phiphi=True)
+    rest = getattr(kernels_nr, fn)(*coords, *args, majorana=True,
+                                   phiphi=False)
+    pp = getattr(kernels_nr, fn)(*coords, *args, majorana=True,
+                                 phiphi=True, channel="pp")
+    assert torch.equal(both, rest + pp)
+    off = getattr(kernels_nr, fn)(*coords, *args, majorana=True,
+                                  phiphi=False, channel="pp")
+    assert not bool(off.any())
+    ref = np.asarray(getattr(jnr, fn)(*map(_j, DISPATCH[fn]), G, 1.0, GA,
+                                      majorana=True, phiphi=True))
+    nz = ref != 0
+    assert (both.numpy()[~nz] == 0).all()
+    assert (np.abs(both.numpy()[nz] - ref[nz]) / np.abs(ref[nz])).max() \
+        <= 1e-12
     with pytest.raises(ValueError, match="unknown channel"):
         getattr(kernels_nr, fn)(*coords, _t(G), _t(1.0), _t(GA),
                                 majorana=True, phiphi=False, channel="x")

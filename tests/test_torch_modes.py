@@ -14,8 +14,8 @@ Gates, each with its reason:
   < 1e-10 gated (mask 1e-25 of the max) with the power-law source;
 * ``trisolve`` vs ``loop`` in the port: < 1e-11 (tests/test_march.py:47,
   53): they are reformulations, not approximations;
-* the seeded random configurations of tests/test_fuzz_configs.py that the
-  port serves (phi-phi off): fast march vs ``loop`` < 1e-9.
+* the seeded random configurations of tests/test_fuzz_configs.py, phi-phi
+  on and off: fast march vs ``loop`` < 1e-9.
 """
 
 import numpy as np
@@ -31,6 +31,7 @@ import nusiprop_tpu_torch as nt
 from nusiprop_tpu_torch.config import Config
 from nusiprop_tpu_torch.models import transport
 from nusiprop_tpu_torch.ops import march_tri
+from nusiprop_tpu_torch.ops.precision import exact_f32_matmul
 
 torch.set_num_threads(2)
 
@@ -268,7 +269,7 @@ def test_trisolve_f32_ignores_the_tf32_switch():
         mm.allow_tf32 = was
     assert seen and not any(seen)             # off inside every solve
     assert torch.equal(got, ref)
-    with transport._exact_f32_matmul():
+    with exact_f32_matmul():
         assert not mm.allow_tf32
     assert bool(mm.allow_tf32) is was
 
@@ -358,8 +359,8 @@ def _draw(rng):
     return cfg, point
 
 
-# that file's six seeds and six more; the port serves those with phi-phi
-# off (phi-phi only acts on a non-resonant config)
+# that file's six seeds and six more; SERVED are those with phi-phi off
+# (phi-phi only acts on a non-resonant config), the rest run with the tables
 FUZZ = {seed: _draw(np.random.default_rng(20250817 + seed))
         for seed in range(12)}
 SERVED = [s for s, (cfg, _) in FUZZ.items() if not cfg["phiphi"]]
@@ -384,9 +385,28 @@ def test_random_config_march_agreement(seed):
     assert rel.max() < 1e-9, (cfg, float(rel.max()))
 
 
+@pytest.fixture(scope="module")
+def default_pp_tables():
+    from nusiprop_tpu_torch.models import pp_tables
+
+    return pp_tables.load_default()
+
+
 @pytest.mark.parametrize("seed", [s for s in range(12) if s not in SERVED])
-def test_random_config_with_phiphi_names_its_slice(seed):
-    """The draws with phi-phi on are refused by name, before any march."""
+def test_random_config_with_phiphi_matches_loop(seed, default_pp_tables):
+    """The draws with phi-phi on, which the port refused before the
+    phi-phi slice, now run as tests/test_fuzz_configs.py runs them (the
+    packaged tables of ``load_default``): the fast march against the
+    ``loop`` oracle < 1e-9 gated, the flux finite and non-negative."""
     cfg, point = FUZZ[seed]
-    with pytest.raises(NotImplementedError, match="slice D"):
-        _port_fla(cfg, point)
+    assert cfg["phiphi"] and cfg["non_resonant"]
+    p = nt.PhysicsParams.create(*point, device="cpu")
+    oracle, fast = (transport.evolve(p, Config(**dict(cfg, march=m)),
+                                     pp_tables=default_pp_tables)
+                    .flux_fla.numpy() for m in ("loop", "trisolve"))
+    assert np.isfinite(oracle).all() and (oracle >= 0.0).all(), cfg
+    pk = np.abs(oracle).max()
+    assert pk > 0.0, cfg
+    gate = np.abs(oracle) > pk * 1e-10
+    rel = np.abs(fast - oracle)[gate] / np.abs(oracle)[gate]
+    assert rel.max() < 1e-9, (cfg, float(rel.max()))

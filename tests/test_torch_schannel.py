@@ -171,22 +171,33 @@ def test_tables_match_jax(majorana, normal_ordering):
             assert err <= 1e-12, (name, b, err)
 
 
-def test_nonresonant_channels_raise():
+def test_table_functions_serve_every_channel():
+    """The table functions serve every channel family; only an unknown
+    channel name raises (before the phi-phi slice, phi-phi raised too)."""
     gr = grids.build(Config(N_bins_E=20, **S_CFG))
     p = nt.PhysicsParams.create(1e6, 1e-2, MNTOT, 2.0, device="cpu")
     from nusiprop_tpu_torch.models import masses
 
     args = (gr.Emin_ext, gr.Emax_ext, masses.mass_spectrum(p.mntot, True),
             p.g, p.mphi, torch.as_tensor(jmixing.pmns_sq(True)[2]))
-    # the non-resonant channels are served; phi-phi names its slice
+    # the non-resonant channels are served, phi-phi among them
     nr = kernels.gamma_table(*args, majorana=True, non_resonant=True,
                              phiphi=False)
     s_only = kernels.gamma_table(*args, majorana=True, non_resonant=False,
                                  phiphi=False)
     assert nr.shape == s_only.shape and bool((nr > s_only).any())
-    for kw in (dict(phiphi=True), dict(phiphi=False, channel="pp")):
-        with pytest.raises(NotImplementedError, match="slice D"):
-            kernels.alpha_table(*args, majorana=True, non_resonant=True, **kw)
+    # phi-phi is served too (the analytic tails without tables): the
+    # channel alone adds what phiphi=True adds to the others
+    pp = kernels.alpha_table(*args, majorana=True, non_resonant=True,
+                             phiphi=True, channel="pp")
+    with_pp = kernels.alpha_table(*args, majorana=True, non_resonant=True,
+                                  phiphi=True)
+    no_pp = kernels.alpha_table(*args, majorana=True, non_resonant=True,
+                                phiphi=False)
+    assert pp.shape == no_pp.shape
+    torch.testing.assert_close(with_pp, no_pp + pp, rtol=0.0,
+                               atol=1e-12 * float(with_pp.abs().max()))
+    assert bool(torch.isfinite(pp).all())  # closed at these energies (s < 4)
     with pytest.raises(ValueError, match="unknown channel"):
         kernels.gamma_table(*args, majorana=True, non_resonant=True,
                             phiphi=False, channel="u")

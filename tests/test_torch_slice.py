@@ -174,20 +174,31 @@ def test_resolve_march_serves_the_main_path():
                                  "cpu")
 
 
-def test_unported_options_raise():
+def test_former_refusals_run():
+    """The options that raised before the phi-phi and general-coupling
+    slices now run: the wrapper's default phi-phi loads the packaged
+    tables at construction, ``coupling_matrix`` evolves through the
+    general march, ``audit`` reports, and ``build_tables`` with phi-phi
+    and no tables takes the analytic tails (zero below the s = 4
+    threshold, which every pair of lE in [4, 9] is)."""
     kw = dict(mphi=1e6, g=1e-3, mntot=MNTOT, si=2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice D"):
-        nt.Evolver(**kw)  # phiphi on by default
-    with pytest.raises(NotImplementedError, match="slice E"):
-        nt.Evolver(**kw, phiphi=False, coupling_matrix=np.eye(3))
-    ev = nt.Evolver(**kw, phiphi=False, march="trisolve_pallas")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        ev.audit()
+    ev = nt.Evolver(**kw)  # phiphi on by default
+    assert ev.config.phiphi and ev._pp_tables is not None
+    small = dict(N_bins_E=24, lEmin=4.0, lEmax=9.0, phiphi=False)
+    gen = nt.Evolver(**kw, **small, coupling_matrix=np.eye(3)).evolve()
+    f = gen.get_flux_fla()
+    assert f.shape == (3, 24) and np.isfinite(f).all() and (f >= 0).all()
+    ev = nt.Evolver(**kw, **small, march="trisolve_pallas")
+    rep = ev.audit()
+    assert rep is ev.last_audit and rep.n_entries > 0 and not ev.evolved
     with pytest.warns(UserWarning):
         assert (ev.get_flux() == 0).all()
     p = nt.param_grid([1e6], [1e-3], mntot=0.1, si=2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice D"):
-        transport.build_tables(p, Config(**dict(CFG, phiphi=True)))
+    pp = transport.build_tables(p, Config(**dict(CFG, phiphi=True)))
+    off = transport.build_tables(p, Config(**CFG))
+    for a, b in zip(pp[:2], off[:2]):
+        assert torch.equal(a, b)
+    assert torch.equal(pp[2][0], off[2][0])
     # Dirac on the fused path: the f64 s-t channel joins alphaTilde
     maj = transport.build_tables(p, Config(**CFG))
     dirac = transport.build_tables(p, Config(**dict(CFG, majorana=False)))
