@@ -86,6 +86,28 @@ phase printing one JSON line:
   march_ds_no_ceiling  K2 against its plain twin at 2048 bins, batch 2
   march_ds_ragged  K2 against its plain twin at 501 bins, batch 3: an odd
               row length and dead bins in the last thread
+  checkpoint  checkpointed_grid_scan of the production batch of 128 in 4
+              chunks of 32, resumed after chunk 0 was written from grid_scan
+              in the JAX chunk format: K1 launches 3 times, the merged flux
+              equals the chunks' grid_scan bitwise and the unchunked
+              grid_scan within K1's gate; the resumed run's wall
+  fit         fit at tests/test_grad.py's point (mphi 6e5, mntot 0.0587,
+              si 2, norm 6) on the golden config's 100 bins: the target
+              evolved at g = 1e-2 through K2 (one launch); 60 Adam steps
+              from g = 10^-2.6 through the eager float64 rank1 march (no K1
+              or K2 launch) to |log10 g + 2| < 0.02 and loss < 1e-3, the
+              median ms per step and the peak memory; the reverse-mode
+              gradient of tests/test_grad.py's _loss (40 bins) against
+              central differences (1e-5); a grad-enabled evolve raises
+              before K2 is launched
+  fisher      fisher at that point: its ridge gates and wall time
+  sharded     (after rank1_route) sharded_grid_scan of the s-channel batch
+              of 1024 over the visible devices and over ["cuda:0"] * 2:
+              bitwise equal to grid_scan, one K2 launch per shard
+  cli         python -m nusiprop_tpu_torch in a subprocess: the golden
+              flags give a file within 1e-3 per bin of
+              tests/data/data_massless.txt, and a checkpointed 4x4 scan at
+              100 bins a finite .npz with no chunk file left behind
 
 then the kernels line (K1's entry adds its share of the bound, its times
 at batch 1 and batch 8, and its launch design: threads, tile width,
@@ -105,7 +127,8 @@ only the band of its table that the march touches, K2 reads DW as one
 row shared by every point) over 3.35 TB/s and
 its operations over the card's peak for their type: 67 TFLOP/s float32
 (K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
-outside the tensor cores. K1's entry also carries ``design_chain_ms``, the
+outside the tensor cores; the peaks come from the port's
+``utils/costmodel``. K1's entry also carries ``design_chain_ms``, the
 serial chain of its present design at assumed latencies: a diagnostic
 beside the bound, not part of it (``k1_bound``).
 """
@@ -114,9 +137,15 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+
+from nusiprop_tpu_torch.utils import costmodel
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 GATE = 5e-5        # kernel vs plain, gated relative (summation order only)
 GATE_FLOOR = 1e-10
@@ -131,9 +160,19 @@ GOLDEN = dict(mphi=5e6, g=1e-6, mntot=MNTOT, si=2.0, norm=6.0,
               N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0, majorana=True,
               normal_ordering=True, non_resonant=False, flav=2)
 REPS = 5           # warm wall-time repetitions of the s-channel paths
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-F64_FLOPS = 34e12
+# tests/test_grad.py's strong-coupling s-channel point, at the golden
+# config's full width (100 bins) for fit and fisher; its _loss at 40 bins
+FIT_CFG = dict(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+               non_resonant=False, majorana=True, normal_ordering=True,
+               flav=2, phiphi=False, source="dsnb")
+FIT_POINT = dict(mphi=6e5, mntot=0.0587, si=2.0, norm=6.0)
+FIT_STEPS = 60
+CHECKPOINT_CHUNK = 32   # 4 chunks of the production batch of 128
+# the card's peaks live in one place: the port's cost model (the H100 SXM
+# data sheet's figures outside the tensor cores)
+HBM_BYTES_PER_S = costmodel.H100_HBM_BYTES_PER_S
+F32_FLOPS = costmodel.H100_F32_FLOPS
+F64_FLOPS = costmodel.H100_F64_FLOPS
 # float32 operations per bin and node outside K1's row dot (counted from
 # csrc/march_tri.cu: two Sherman-Morrison passes, c1/c2, cy, x)
 K1_ELEM_FLOPS = 105
@@ -363,6 +402,9 @@ def main():
     f64 = trisolve_f64_phase(dev, card, params, res)
     pp = phiphi_phase(dev, card)
     dflt = evolver_defaults_phase(dev)
+    ck = checkpoint_phase(dev, card, params, res)
+    fitted = fit_phase(dev, card)
+    fisher_phase(dev, card)
 
     cmps = (cmp1, cmp128, cmp500, cmp1024, cmp_d, pp["cmp"], dflt["cmp"])
     b1 = k1_bound(B, NE, Nz)
@@ -375,14 +417,15 @@ def main():
         replaces="nusiprop_tpu/ops/march_tri.py:83::_make_kernel",
         launches=(n_ev + main_launches + n_dirac + f64["k1_launches"]
                   + pp["launches"] + dflt["launches"]
-                  + dflt["powerlaw_launches"]),
+                  + dflt["powerlaw_launches"] + ck["launches"]),
         launches_by_path={"evolver": n_ev, "grid_scan": main_launches,
                           "dirac": n_dirac,
                           "trisolve_f64_partner": f64["k1_launches"],
                           "phiphi": pp["launches"],
                           "evolver_defaults": dflt["launches"],
                           "evolver_defaults_powerlaw":
-                              dflt["powerlaw_launches"]},
+                              dflt["powerlaw_launches"],
+                          "checkpointed_grid_scan": ck["launches"]},
         max_abs_err=max(c["max_abs_err"] for c in cmps),
         max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         max_flux_rel_vs_plain=max(cmp1["flux_rel_vs_plain"],
@@ -401,7 +444,8 @@ def main():
               "the Dirac tables at batch 8, on the phi-phi tables at "
               "batch 64 and on the power-law defaults at batch 1, NE 300")
 
-    k2 = schannel_phases(dev, card)
+    k2 = schannel_phases(dev, card, fitted["k2_target_launches"])
+    cli_phase(card)
     emit(kernels=[k1, k2])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -694,11 +738,288 @@ def evolver_defaults_phase(dev):
     return dict(launches=launches, powerlaw_launches=pl_launches, cmp=cmp)
 
 
-def schannel_phases(dev, card):
+def checkpoint_phase(dev, card, params, res):
+    """checkpointed_grid_scan of the production batch (128 points, 500
+    bins, K1) in 4 chunks of CHECKPOINT_CHUNK, resumed after chunk 0 was
+    written from grid_scan (the JAX chunk format): K1 launches once per
+    remaining chunk; the merged flux equals the chunks' grid_scan bitwise
+    and the unchunked grid_scan ``res`` within K1's gate. Returns the
+    resumed run's K1 launches."""
+    import numpy as np
+    import torch
+
+    from nusiprop_tpu_torch import checkpointed_grid_scan, grid_scan
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.ops import march_tri as mt
+
+    cfg = Config(**PROD)
+    B, C = params.mphi.shape[0], CHECKPOINT_CHUNK
+    chunks = [grid_scan(params.map(lambda x: x[s:s + C]), cfg)
+              for s in range(0, B, C)]
+    os.makedirs(os.path.join(ROOT, "_scratch"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
+                                                                  "_scratch"))
+    try:
+        path = os.path.join(tmp, "scan.npz")
+        first = chunks[0]
+        np.savez(path + ".chunk00000.npz", flux=first.flux.cpu().numpy(),
+                 flux_fla=first.flux_fla.cpu().numpy(),
+                 E_nu=first.E_nu[0].cpu().numpy())
+        visited = []
+        torch.cuda.synchronize()
+        mt.march_tri.launches = 0
+        t0 = time.perf_counter()
+        out = checkpointed_grid_scan(params, cfg, path, chunk_size=C,
+                                     progress=lambda c, n: visited.append(c))
+        wall = time.perf_counter() - t0
+        launches = mt.march_tri.launches
+        left = sorted(f for f in os.listdir(tmp) if "chunk" in f)
+    finally:
+        shutil.rmtree(tmp)
+    check(launches == B // C - 1,
+          f"the resumed scan launched K1 once per remaining chunk: {launches}")
+    check(visited == list(range(2, B // C + 1)), f"chunks run {visited}")
+    check(not left, f"chunk files merged and removed: {left}")
+    ref = torch.cat([r.flux_fla for r in chunks]).cpu().numpy()
+    check(np.array_equal(out["flux_fla"], ref),
+          "the merged flux equals the chunks' grid_scan bitwise")
+    whole = torch.as_tensor(out["flux_fla"], device=dev)
+    rel = gated_rel(res.flux_fla, whole)
+    check(rel < GATE, f"the merged flux vs the unchunked grid_scan {rel:.3e}")
+    emit(phase="checkpoint", batch=B, chunk_size=C, NE=PROD["N_bins_E"],
+         chunks_resumed=visited, kernel_launches=launches,
+         bitwise_vs_chunks=True, flux_fla_rel_vs_unchunked=rel,
+         resumed_wall_s=wall, card=card)
+    return dict(launches=launches)
+
+
+def fit_phase(dev, card):
+    """fit on the card at tests/test_grad.py's point, the golden config's
+    full width (FIT_CFG): the target evolved at g = 1e-2 through K2 (one
+    launch), then FIT_STEPS Adam steps from g = 10^-2.6 through the eager
+    float64 rank1 march (no K1 or K2 launch): |log10 g + 2| < 0.02 and loss
+    < 1e-3, the median ms per step and the peak memory; the reverse-mode
+    gradient of tests/test_grad.py's _loss (40 bins) against central
+    differences (1e-5); the guard raising on a grad-enabled evolve.
+    Returns the target evolve's K2 launches."""
+    import dataclasses
+
+    import torch
+
+    from nusiprop_tpu_torch import PhysicsParams, fit
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.models import transport
+    from nusiprop_tpu_torch.ops import march_ds as mds
+    from nusiprop_tpu_torch.ops import march_tri as mt
+
+    cfg = Config(**FIT_CFG)
+    true = PhysicsParams.create(g=1e-2, device=dev, **FIT_POINT)
+    mds.march_ds_batched.launches = 0
+    target = transport.evolve(true, cfg).flux_fla
+    n_target = mds.march_ds_batched.launches
+    check(n_target == 1, f"the fit target went through K2 once: {n_target}")
+
+    class TimedAdam(torch.optim.Adam):
+        """Adam that records the synchronized host clock at every step."""
+        stamps = []
+
+        def step(self, closure=None):
+            out = super().step(closure)
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            return out
+
+    init = PhysicsParams.create(g=10.0 ** -2.6, device=dev, **FIT_POINT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.march_tri.launches = mds.march_ds_batched.launches = 0
+    t0 = time.perf_counter()
+    res = fit(cfg, target, init, fit_fields=("g",), steps=FIT_STEPS,
+              learning_rate=0.1,
+              optimizer=lambda ps: TimedAdam(ps, lr=0.1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inside = (mt.march_tri.launches, mds.march_ds_batched.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(inside == (0, 0), f"fit launched no K1 or K2: {inside}")
+    lg = float(torch.log10(res.params.g))
+    check(abs(lg + 2.0) < 0.02, f"fit recovers log10 g = -2: {lg}")
+    check(float(res.loss) < 1e-3, f"fit loss {float(res.loss):.3e}")
+    check(res.params.g.is_cuda and res.history.shape == (FIT_STEPS,),
+          "fit result on the card, one history entry per step")
+    stamps = [t0] + TimedAdam.stamps
+    steps_ms = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+
+    # tests/test_grad.py's _loss and its central-difference gate, on the
+    # card through the differentiable route (the eager rank1 march)
+    cfg40 = Config(**dict(FIT_CFG, N_bins_E=40))
+
+    def loss(lg, lm):
+        p = PhysicsParams.create(10.0 ** lm, 10.0 ** lg, FIT_POINT["mntot"],
+                                 FIT_POINT["si"], FIT_POINT["norm"],
+                                 device=dev)
+        f = transport.evolve_core(p.map(lambda x: x[None]), cfg40,
+                                  "rank1").flux_fla
+        pk = torch.max(f)
+        return torch.sum(torch.log(torch.maximum(f, pk * 1e-12)))
+
+    x0 = [torch.tensor(v, dtype=torch.float64, device=dev,
+                       requires_grad=True) for v in (-2.0, math.log10(6e5))]
+    grads = [float(g) for g in torch.autograd.grad(loss(*x0), x0)]
+    eps = 1e-5
+    with torch.no_grad():
+        lg0, lm0 = (x.detach() for x in x0)
+        fd = [float((loss(lg0 + eps, lm0) - loss(lg0 - eps, lm0)) / (2 * eps)),
+              float((loss(lg0, lm0 + eps) - loss(lg0, lm0 - eps)) / (2 * eps))]
+    fd_rel = max(abs(a / b - 1.0) for a, b in zip(grads, fd))
+    check(fd_rel < 1e-5, f"gradient vs central differences {fd_rel:.3e}")
+
+    # the forward-only guard: a grad-enabled evolve through K2 raises
+    p = dataclasses.replace(true, g=true.g.clone().requires_grad_())
+    mds.march_ds_batched.launches = 0
+    try:
+        transport.evolve(p, cfg)
+        guarded = False
+    except RuntimeError as e:
+        guarded = "forward-only" in str(e)
+    check(guarded and mds.march_ds_batched.launches == 0,
+          "a grad-enabled evolve through K2 raises before the launch")
+    emit(phase="fit", N_bins_E=cfg.N_bins_E, steps=FIT_STEPS,
+         target_k2_launches=n_target, k1_k2_launches_in_fit=list(inside),
+         log10_g=lg, loss=float(res.loss),
+         history_first_last=[float(res.history[0]),
+                             float(res.history[-1])],
+         wall_s=wall, step_ms=dict(median=steps_ms[len(steps_ms) // 2],
+                                   min=steps_ms[0], max=steps_ms[-1]),
+         peak_mem_gb=peak / 1e9, grad_40_bins=grads, central_diff=fd,
+         grad_rel_vs_central_diff=fd_rel, guard_raised=guarded, card=card)
+    return dict(k2_target_launches=n_target)
+
+
+def fisher_phase(dev, card):
+    """fisher on the card at the fit phase's point: tests/test_grad.py's
+    ridge gates (near-singular along (1, 1) in (log10 g, log10 mphi)),
+    its wall time, and no K1 or K2 launch."""
+    import numpy as np
+    import torch
+
+    from nusiprop_tpu_torch import PhysicsParams, fisher
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.ops import march_ds as mds
+    from nusiprop_tpu_torch.ops import march_tri as mt
+
+    cfg = Config(**FIT_CFG)
+    p = PhysicsParams.create(g=1e-2, device=dev, **FIT_POINT)
+    fisher(cfg, p)                                  # warm-up
+    torch.cuda.synchronize()
+    mt.march_tri.launches = mds.march_ds_batched.launches = 0
+    t0 = time.perf_counter()
+    F, cov = fisher(cfg, p, fit_fields=("g", "mphi"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inside = (mt.march_tri.launches, mds.march_ds_batched.launches)
+    check(inside == (0, 0), f"fisher launched no K1 or K2: {inside}")
+    check(F.is_cuda and F.dtype == torch.float64, "F on the card, float64")
+    w, v = np.linalg.eigh(F.cpu().numpy())
+    ridge = v[:, 0] / np.linalg.norm(v[:, 0])
+    along = abs(abs(ridge @ np.array([1.0, 1.0]) / np.sqrt(2)) - 1)
+    check(w[0] / w[1] < 1e-3, f"F near-singular: eigenvalues {w}")
+    check(along < 1e-2, f"the ridge lies along (1, 1): {ridge}")
+    emit(phase="fisher", N_bins_E=cfg.N_bins_E, F=F.cpu().tolist(),
+         eigenvalues=w.tolist(), ridge=ridge.tolist(), ridge_off_1_1=along,
+         wall_s=wall, k1_k2_launches=list(inside), card=card)
+
+
+def sharded_phase(dev, card, params, cfg, ref):
+    """sharded_grid_scan of the s-channel batch of 1024 (500 bins, rank1,
+    K2) over the visible devices, then over ["cuda:0"] * 2: bitwise equal
+    to grid_scan's ``ref`` (K2 is elementwise over the batch), one K2
+    launch per shard, and each wall. Returns the launches of both runs."""
+    import torch
+
+    from nusiprop_tpu_torch import sharded_grid_scan
+    from nusiprop_tpu_torch.ops import march_ds as mds
+
+    out = {}
+    for key, devices in (("1", None), ("2", [f"cuda:{dev.index or 0}"] * 2)):
+        torch.cuda.synchronize()
+        mds.march_ds_batched.launches = 0
+        t0 = time.perf_counter()
+        res = sharded_grid_scan(params, cfg, devices=devices)
+        torch.cuda.synchronize()
+        out["wall_" + key] = time.perf_counter() - t0
+        out["launches_" + key] = mds.march_ds_batched.launches
+        check(torch.equal(res.flux_fla, ref.flux_fla),
+              f"sharded_grid_scan ({devices}) equals grid_scan bitwise")
+    n_dev = torch.cuda.device_count()
+    check(out["launches_1"] == n_dev and out["launches_2"] == 2,
+          f"one K2 launch per shard: {out}")
+    emit(phase="sharded", batch=params.mphi.shape[0], NE=cfg.N_bins_E,
+         devices_visible=n_dev, bitwise_vs_grid_scan=True, **out, card=card)
+    return out
+
+
+def cli_phase(card):
+    """``python -m nusiprop_tpu_torch`` in a subprocess: the golden flags
+    give a file within 1e-3 per bin of tests/data/data_massless.txt, and a
+    checkpointed 4x4 scan at 100 bins a finite .npz with no chunk file
+    left behind."""
+    import numpy as np
+
+    os.makedirs(os.path.join(ROOT, "_scratch"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT,
+                                                                  "_scratch"))
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def run(*args):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "nusiprop_tpu_torch",
+                              *args], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        check(out.returncode == 0, f"CLI {args[:2]} exited "
+                                   f"{out.returncode}: {out.stderr[-2000:]}")
+        return out.stdout.strip().splitlines(), time.perf_counter() - t0
+
+    try:
+        spec = os.path.join(tmp, "data_massless.txt")
+        summary, t_evolve = run(
+            "--mphi", "5e6", "--g", "1e-6", "--mntot", "massless", "--si",
+            "2", "--norm", "6", "--bins", "100", "--lEmin", "4", "--lEmax",
+            "9", "--flav", "2", "--s-channel-only", "--no-phiphi", "-o", spec)
+        got = np.loadtxt(spec, skiprows=1)
+        ref = np.loadtxt(os.path.join(ROOT, "tests", "data",
+                                      "data_massless.txt"), skiprows=1)
+        golden_rel = float((np.abs(got[:, 1:] - ref[:, 1:])
+                            / np.abs(ref[:, 1:])).max())
+        check(golden_rel < 1e-3, f"CLI golden file per bin {golden_rel:.3e}")
+        scan = os.path.join(tmp, "scan.npz")
+        scan_summary, t_scan = run(
+            "scan", "--mphi", "1e3:1e7:4", "--g", "1e-12:1e-8:4", "--mntot",
+            "0.1", "--si", "2", "--bins", "100", "--lEmin", "4", "--lEmax",
+            "9", "--s-channel-only", "--no-phiphi", "--chunk", "4",
+            "--checkpoint", "-o", scan)
+        with np.load(scan) as dat:
+            shape = list(dat["flux_fla"].shape)
+            finite = bool(np.isfinite(dat["flux_fla"]).all())
+        left = sorted(f for f in os.listdir(tmp) if "chunk" in f)
+    finally:
+        shutil.rmtree(tmp)
+    check(shape == [16, 3, 100] and finite, f"CLI scan output {shape}")
+    check(not left, f"no chunk file left behind: {left}")
+    check(any("backend=cuda (" in ln for ln in summary),
+          f"the CLI ran on the card: {summary}")
+    emit(phase="cli", golden_max_rel=golden_rel, evolve_summary=summary,
+         evolve_process_s=t_evolve, scan_shape=shape,
+         scan_summary=scan_summary, scan_process_s=t_scan, card=card)
+
+
+def schannel_phases(dev, card, fit_target_launches):
     """The s-channel golden path: Evolver and grid_scan through the rank1
     marches (the f64 one is K2's route on the card), the eager rank1
-    march beside it, and K2 through evolve_pallas. Returns K2's entry of
-    the kernels line."""
+    march beside it, sharded_grid_scan on that batch, and K2 through
+    evolve_pallas. Returns K2's entry of the kernels line, whose launches
+    include the fit phase's target evolve (``fit_target_launches``)."""
     import numpy as np
     import torch
 
@@ -777,6 +1098,7 @@ def schannel_phases(dev, card):
         except ValueError as e:
             refused += "8192" in str(e) and mds.march_ds_batched.launches == 0
     check(refused == 2, "rank1 above 8192 bins is refused on the card")
+    sh = sharded_phase(dev, card, params, c_rank1, runs["rank1"][0])
     emit(phase="rank1_route", batch=B, NE=cfg.N_bins_E, reps=REPS,
          kernel_launches=n_gs, evolver_kernel_launches=n_ev,
          refused_above_8192_bins=refused, flux_fla_rel_vs_eager=route_rel, route_s=runs["rank1"][1],
@@ -833,9 +1155,12 @@ def schannel_phases(dev, card):
         name="march_ds", route="cuda",
         source="nusiprop_tpu_torch/csrc/march_ds.cu",
         replaces="nusiprop_tpu/ops/march_ds.py:333::_make_kernel",
-        launches=launches + n_gs + n_ev,
+        launches=(launches + n_gs + n_ev + fit_target_launches
+                  + sh["launches_1"] + sh["launches_2"]),
         launches_by_path={"evolve_pallas": launches, "grid_scan": n_gs,
-                          "evolver": n_ev},
+                          "evolver": n_ev, "fit_target": fit_target_launches,
+                          "sharded_grid_scan": sh["launches_1"],
+                          "sharded_grid_scan_cuda0x2": sh["launches_2"]},
         max_abs_err=max(c["max_abs_err"] for c in cmps),
         max_rel_vs_plain=max(c["max_rel_vs_plain"] for c in cmps),
         ms=cmp["kernel_ms"], plain_ms=cmp["plain_ms"], **bound,

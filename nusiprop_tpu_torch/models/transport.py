@@ -793,13 +793,16 @@ def _z_step_trisolve(flux, i, lum, node, tblA, Wf, inv_dE, NE):
 def _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE):
     """Reference-shaped descending-bin sweep (nuSIprop.hpp:266-315), the
     cross-validation oracle: per bin the regeneration feed from the
-    higher bins updated so far, then the 3x3 adjugate solve."""
+    higher bins updated so far, then the 3x3 adjugate solve. Each bin's
+    solution goes into a fresh tensor (``index_copy``, out of place), so
+    no tensor that autograd saved is written over."""
     ndfac, pref, Zdr, coup = node
     A_i = tblA[..., i - 1:i - 1 + NE, i - 1:i - 1 + NE] * ndfac
     eye3 = torch.eye(3, dtype=torch.float64, device=flux.device)
     WfWf = Wf[:, None] * Wf[None, :]
     offd = 1.0 - eye3
-    flx = flux.clone()
+    bins = torch.arange(NE, device=flux.device)
+    flx = flux
     for jm in range(NE - 1, -1, -1):
         arow = A_i[..., jm, :]  # strictly-triangular zeros mask m <= jm
         s_l = ((flx * inv_dE) @ arow[..., :, None])[..., 0]  # (..., 3)
@@ -809,7 +812,7 @@ def _z_step_loop(flux, i, lum, node, tblA, Wf, inv_dE, NE):
         rhs = (flx[..., :, jm] + src) / zdr
         M = eye3 + offd * (coup[..., jm, None, None] * WfWf
                            / zdr[..., :, None])
-        flx[..., :, jm] = _solve3(M, rhs)
+        flx = flx.index_copy(-1, bins[jm:jm + 1], _solve3(M, rhs)[..., None])
     return flx
 
 

@@ -9,6 +9,10 @@ all at once, and waits for them together. Nothing here runs at import.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch twins beside each kernel round them.
+
+The kernels are forward-only, as the Pallas marches of the JAX package
+are: a launch on ``data_ptr()`` records nothing for autograd, so
+``refuse_grad`` stops a launch whose result would be cut from the graph.
 """
 
 import ctypes
@@ -17,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -98,3 +104,18 @@ def load(name: str, declare):
         declare(lib)
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def refuse_grad(kernel: str, tensors):
+    """Raise ``RuntimeError`` before a launch of ``kernel`` where grad mode
+    is on and an input requires grad: the kernel's output would carry no
+    gradient, and a caller differentiating through it would get one that
+    is silently missing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the fused {kernel} kernel march is forward-only (as the Pallas "
+            "marches of the JAX package are): its flux would be cut from "
+            "the autograd graph. Differentiate through "
+            "nusiprop_tpu_torch.fit/fisher, march='trisolve' or 'loop' "
+            "(the float64 eager marches), or CPU tensors; run the forward "
+            "flux under torch.no_grad()")

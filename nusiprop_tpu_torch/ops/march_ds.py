@@ -225,7 +225,9 @@ def march_ds_batched(rows, meta):
     """The fused march for a batch: the CUDA kernel for CUDA tensors, the
     plain twin for CPU tensors (and nothing else). Same contract as
     ``march_ds_plain`` (the kernel agrees with it to float64 round-off);
-    counts kernel launches in ``march_ds_batched.launches``."""
+    counts kernel launches in ``march_ds_batched.launches``. The kernel is
+    forward-only: with grad mode on, rows that require grad raise
+    ``RuntimeError`` before the launch (``cuda_build.refuse_grad``)."""
     missing = set(ROW_NAMES) - set(rows)
     if missing:
         raise ValueError(f"missing rows {sorted(missing)}")
@@ -250,6 +252,7 @@ def march_ds_batched(rows, meta):
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("march_ds needs contiguous rows on CUDA")
     check_bins(NE)
+    cuda_build.refuse_grad("rank1 (march_ds)", xs)
     lib = cuda_build.load("march_ds", _declare)
     out = torch.empty(B, 3, NE, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):

@@ -93,7 +93,9 @@ def march_tri(A32, xs, W_static, NE: int, Nz: int):
     """The fused march: the CUDA kernel for CUDA tensors, the plain twin
     for CPU tensors (and nothing else). Same contract as
     ``march_tri_plain``. Counts kernel launches in ``march_tri.launches``.
-    """
+    The kernel is forward-only: with grad mode on, inputs that require
+    grad raise ``RuntimeError`` before the launch
+    (``cuda_build.refuse_grad``)."""
     if len(xs) != 7:
         raise ValueError(f"expected 7 coefficient rows, got {len(xs)}")
     B, NEXT = A32.shape[0], A32.shape[-1]
@@ -116,6 +118,7 @@ def march_tri(A32, xs, W_static, NE: int, Nz: int):
     for x in (A32, *xs):
         if not x.is_contiguous():
             raise ValueError("march_tri needs contiguous inputs on CUDA")
+    cuda_build.refuse_grad("trisolve (march_tri)", (A32, *xs))
     lib = cuda_build.load("march_tri", _declare)
     out = torch.empty(B, 3, NE, dtype=torch.float32, device=A32.device)
     W = [_f32(w) for w in W_static]

@@ -18,7 +18,11 @@ and the twin by doubling over all bins, so they agree to float64
 round-off. The phi-phi tests run K1 on tables with the pp channel of the
 packaged spline tables folded in (48 bins over lE in [12, 14], where the
 channel opens), hold the spline's float32 products to the same table
-under the TF32 switch, and run the wrapper's default ``Evolver``.
+under the TF32 switch, and run the wrapper's default ``Evolver``. The
+last tests hold the kernels' forward-only guard (params that require grad
+raise before K1 or K2 is launched, and launch under ``torch.no_grad()``),
+``fit``/``fisher`` on the card to the eager march (no launch), and the
+checkpointed and device-split scans to one launch per chunk or shard.
 """
 
 import numpy as np
@@ -296,3 +300,106 @@ def test_evolver_defaults_run_on_card():
     assert ev.device.type == "cuda" and ev._pp_tables.device.type == "cuda"
     f = ev.get_flux_fla()
     assert f.shape == (3, 300) and np.isfinite(f).all() and (f >= 0).all()
+
+
+# the forward-only guard in front of both launches, and the seventh
+# slice's entry points (fit, the checkpointed and device-split scans) on
+# the card
+
+GUARD_KW = {"k1": dict(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                       non_resonant=True, phiphi=False),
+            "k2": dict(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                       non_resonant=False, phiphi=False)}
+
+
+def _launches(kernel):
+    return (march_tri.march_tri.launches if kernel == "k1"
+            else march_ds.march_ds_batched.launches)
+
+
+@pytest.mark.parametrize("entry", ["evolve", "grid_scan"])
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_grad_through_a_fused_march_raises_on_card(kernel, entry):
+    """Params that require grad: with grad mode on, the route through K1
+    (non-resonant "auto") or K2 ("rank1" s-channel) raises the guard's
+    error before the launch and returns no flux cut from the graph; under
+    torch.no_grad() the same call launches once, as before."""
+    import dataclasses
+
+    dev = _card()
+    cfg = Config(**GUARD_KW[kernel])
+    params = nt.param_grid(MPHI[:2], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    params = dataclasses.replace(params, g=params.g.clone().requires_grad_())
+    if entry == "evolve":
+        params = params.map(lambda x: x[0])
+        call = lambda: transport.evolve(params, cfg)
+    else:
+        call = lambda: nt.grid_scan(params, cfg)
+    before = _launches(kernel)
+    with pytest.raises(RuntimeError, match="forward-only") as err:
+        call()
+    assert "fit/fisher" in str(err.value)
+    assert _launches(kernel) == before
+    with torch.no_grad():
+        res = call()
+    assert _launches(kernel) == before + 1
+    assert res.flux.is_cuda and bool(torch.isfinite(res.flux).all())
+    assert not res.flux.requires_grad
+
+
+def test_fit_on_card_differentiates_the_eager_march():
+    """fit and fisher on CUDA tensors take the eager float64 rank1 march:
+    no K1 or K2 launch, and the result on the card."""
+    dev = _card()
+    cfg = Config(**GUARD_KW["k2"])
+    true = nt.PhysicsParams.create(6e5, 1e-2, 0.0587, 2.0, 6.0, device=dev)
+    with torch.no_grad():
+        target = transport.evolve(true, cfg).flux_fla
+    init = nt.PhysicsParams.create(6e5, 10.0 ** -2.2, 0.0587, 2.0, 6.0,
+                                   device=dev)
+    k1, k2 = _launches("k1"), _launches("k2")
+    res = nt.fit(cfg, target, init, fit_fields=("g",), steps=5,
+                 learning_rate=0.1)
+    F, cov = nt.fisher(cfg, true, fit_fields=("g", "mphi"))
+    assert (_launches("k1"), _launches("k2")) == (k1, k2)
+    assert res.params.g.is_cuda and res.history.shape == (5,)
+    assert float(res.history[-1]) < float(res.history[0])
+    assert F.is_cuda and F.dtype == torch.float64 and F.shape == (2, 2)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_sharded_scan_on_one_card_twice(kernel):
+    """sharded_grid_scan over ["cuda:0"] * 2: one launch per shard, and the
+    result equals grid_scan's (bitwise for K2, whose march is elementwise
+    over the batch; 5e-5 gated for K1)."""
+    dev = _card()
+    cfg = Config(**GUARD_KW[kernel])
+    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    ref = nt.grid_scan(params, cfg)
+    before = _launches(kernel)
+    got = nt.sharded_grid_scan(params, cfg, devices=["cuda:0"] * 2)
+    assert _launches(kernel) == before + 2
+    assert got.flux.device == ref.flux.device
+    if kernel == "k2":
+        assert torch.equal(got.flux_fla, ref.flux_fla)
+    else:
+        assert _gated_rel(ref.flux_fla, got.flux_fla) < 5e-5
+
+
+def test_checkpointed_scan_on_card(tmp_path):
+    """checkpointed_grid_scan of 4 points in chunks of 2 through K2: one
+    launch per chunk, the merged file equal to the chunks' grid_scan."""
+    dev = _card()
+    cfg = Config(**GUARD_KW["k2"])
+    params = nt.param_grid(MPHI, [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                           device=dev)
+    before = _launches("k2")
+    out = nt.checkpointed_grid_scan(params, cfg, tmp_path / "s.npz",
+                                    chunk_size=2)
+    assert _launches("k2") == before + 2
+    ref = torch.cat([nt.grid_scan(params.map(lambda x: x[s:s + 2]),
+                                  cfg).flux_fla for s in (0, 2)])
+    assert np.array_equal(out["flux_fla"], ref.cpu().numpy())
+    assert not list(tmp_path.glob("*.chunk*"))
