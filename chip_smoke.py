@@ -108,6 +108,18 @@ phase printing one JSON line:
               flags give a file within 1e-3 per bin of
               tests/data/data_massless.txt, and a checkpointed 4x4 scan at
               100 bins a finite .npz with no chunk file left behind
+  eshard      the storage-sharded E' march (parallel/eshard; float64
+              eager torch, no K1 or K2 launch), at tests/test_sharding.py's
+              JAX point (mphi 5e6, g 1e-3, si 2, norm 6, lE in [4, 9],
+              zmax 5): 256 bins through evolve_esharded over the visible
+              devices and over ["cuda:0"] * 4, each against the unsharded
+              trisolve march on its concatenated blocks (gated rel <
+              1e-12, flux_fla rtol 1e-11), and the gap to transport.evolve
+              on the full f32 build; then 10,000 bins (Nz 1558, NEXT
+              11,556) over ["cuda:0"] * 8: the block build and the march
+              timed with their peak memory, local_table_bytes,
+              evolve_esharded equal to them bitwise, and the referee on
+              the concatenated blocks (< 1e-12)
 
 then the kernels line (K1's entry adds its share of the bound, its times
 at batch 1 and batch 8, and its launch design: threads, tile width,
@@ -208,6 +220,18 @@ PHIPHI_G = 0.03
 # each level of the warp scan and of the totals scan)
 K2_NODE_FLOPS = 128
 K2_LEVEL_FLOPS = 3
+# the storage-sharded E' march (parallel/eshard): tests/test_sharding.py's
+# JAX config at 256 bins, then the SURVEY §5 regime at 10,000 bins (NEXT
+# 11,556) over 8 column blocks on this card; the JAX gate of 1e-12
+ESHARD = dict(N_bins_E=256, lEmin=4.0, lEmax=9.0, zmax=5.0,
+              non_resonant=True, majorana=True, normal_ordering=True,
+              flav=2, phiphi=False, source="dsnb", march="trisolve")
+ESHARD_POINT = dict(mphi=5e6, g=1e-3, mntot=MNTOT, si=2.0, norm=6.0)
+ESHARD_STRONG = dict(ESHARD_POINT, mphi=1e5, g=1e-2)
+ESHARD_BIG_BINS = 10000
+ESHARD_BIG_D = 8
+ESHARD_ZMAX = 5.0   # the full redshift depth: no cut
+ESHARD_GATE = 1e-12
 
 
 def emit(**kw):
@@ -446,6 +470,7 @@ def main():
 
     k2 = schannel_phases(dev, card, fitted["k2_target_launches"])
     cli_phase(card)
+    eshard_phase(dev, card)
     emit(kernels=[k1, k2])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1170,6 +1195,165 @@ def schannel_phases(dev, card, fit_target_launches):
         shape=f"batch {B}, NE 500, Nz {Nz} (the "
               "evolve_pallas path's own); also compared at NE 2048 batch 2 "
               "and NE 501 batch 3")
+
+
+def eshard_phase(dev, card):
+    """The storage-sharded E' march (parallel/eshard) on the card, at the
+    JAX test's point and at a strong one (ESHARD_STRONG: at the JAX point
+    regeneration moves the flux by ~1e-9, so a gate of 1e-12 there sees
+    little of the sharded solve; at the strong point the march without
+    regeneration is off by ~100%, printed as ``regeneration_rel``). (a) At
+    256 bins through ``evolve_esharded`` over the visible devices and over
+    ["cuda:0"] * 4, each against the unsharded float64 trisolve march on
+    its own concatenated blocks (gated rel < 1e-12, flux_fla rtol 1e-11),
+    and the gap to ``transport.evolve`` on the full f32 build. (b) At
+    10,000 bins over ["cuda:0"] * 8, for each point: the block build and
+    the march, each timed with its peak memory, and the unsharded referee
+    on the concatenated blocks (never the unsharded build, which would
+    need ~58 GB); at the JAX point ``evolve_esharded`` itself, equal to its
+    parts bitwise. No K1 or K2 launch: the march is float64 eager torch,
+    as the JAX eshard is plain XLA."""
+    import dataclasses
+
+    import torch
+
+    from nusiprop_tpu_torch.config import Config, PhysicsParams
+    from nusiprop_tpu_torch.models import (grids, kernels_nr_f32, masses,
+                                           mixing, sources, transport)
+    from nusiprop_tpu_torch.ops import march_ds as mds
+    from nusiprop_tpu_torch.ops import march_tri as mt
+    from nusiprop_tpu_torch.parallel import eshard
+
+    points = {"jax": PhysicsParams.create(**ESHARD_POINT, device=dev),
+              "strong": PhysicsParams.create(**ESHARD_STRONG, device=dev)}
+    Wf = torch.as_tensor(mixing.pmns_sq(True)[ESHARD["flav"]], device=dev)
+
+    def tables(p, gr):
+        return kernels_nr_f32.nr_gamma_alphatilde_f32(
+            gr.Emin_ext, gr.Emax_ext, masses.mass_spectrum(p.mntot, True),
+            p.g, p.mphi, Wf, majorana=True)
+
+    def referee(p, cfg, blocks, scale=1.0):
+        """The unsharded trisolve march on the concatenated blocks (times
+        ``scale``: 0 is the march without regeneration)."""
+        gr = grids.build(cfg, dev)
+        NEXT = gr.Emin_ext.shape[0]
+        A = torch.cat(blocks, dim=1)[:NEXT, :NEXT] * scale
+        tblG, tblAt = tables(p, gr)
+        return transport.evolve_core(
+            p.map(lambda x: x[None]), cfg, "trisolve",
+            tables=(tblG[None], tblAt[None], A[None]))
+
+    def gaps(p, cfg, blocks, flux, flux_fla):
+        """The flux against the referee: gated rel (the JAX gate) and
+        flux_fla's, which must also meet rtol 1e-11 on every entry; and
+        how far regeneration moves the flux."""
+        ref = referee(p, cfg, blocks)
+        rel = gated_rel(ref.flux, flux[None])
+        fla = gated_rel(ref.flux_fla, flux_fla[None])
+        check(bool(torch.isfinite(flux).all()) and float(flux.max()) > 0,
+              "eshard flux finite and non-zero")
+        check(rel < ESHARD_GATE and torch.allclose(
+            flux_fla, ref.flux_fla[0], rtol=1e-11, atol=0.0),
+              f"eshard vs the unsharded march on its blocks: {rel:.3e} "
+              f"(< {ESHARD_GATE}), flux_fla {fla:.3e} (rtol 1e-11)")
+        del ref
+        bare = referee(p, cfg, blocks, scale=0.0)
+        return dict(rel_vs_unsharded=rel, flux_fla_rel_vs_unsharded=fla,
+                    regeneration_rel=gated_rel(bare.flux, flux[None]))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    mt.march_tri.launches = 0
+    mds.march_ds_batched.launches = 0
+
+    # ---- (a) 256 bins: the visible devices and ["cuda:0"] * 4 ----
+    cfg = Config(**ESHARD)
+    NEXT = cfg.N_bins_E + grids.n_steps_z(cfg) - 2
+    visible = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    small = dict(N_bins_E=cfg.N_bins_E, NEXT=NEXT)
+    for key, name, devices in (("visible", "jax", None),
+                               ("x4", "jax", ["cuda:0"] * 4),
+                               ("strong_x4", "strong", ["cuda:0"] * 4)):
+        p = points[name]
+        D = len(devices or visible)
+        (flux, flux_fla), wall, _ = timed(
+            lambda: eshard.evolve_esharded(p, cfg, devices=devices))
+        blocks = eshard.build_alpha_sharded(p, cfg, devices or visible,
+                                            -(-NEXT // D))
+        small[key] = dict(D=D, wall_s=wall,
+                          **gaps(p, cfg, blocks, flux, flux_fla))
+        if name == "jax" and devices:
+            full = transport.evolve(
+                p, dataclasses.replace(cfg, table_dtype="f32"))
+            small["rel_vs_full_build_evolve"] = gated_rel(full.flux[None],
+                                                          flux[None])
+    check(small["strong_x4"]["regeneration_rel"] > 0.5,
+          "regeneration moves the flux at the strong point")
+
+    # ---- (b) 10,000 bins over 8 column blocks on this card ----
+    cfg = Config(**dict(ESHARD, N_bins_E=ESHARD_BIG_BINS, zmax=ESHARD_ZMAX))
+    D = ESHARD_BIG_D
+    devices = [f"cuda:{dev.index or 0}"] * D
+    gr = grids.build(cfg, dev)
+    NEXT = gr.Emin_ext.shape[0]
+    Nz = gr.N_steps_z
+    C = -(-NEXT // D)
+    block_bytes, whole_bytes = eshard.local_table_bytes(cfg, D)
+    big = {}
+    for name, p in points.items():
+        blocks, t_build, peak_build = timed(
+            lambda: eshard.build_alpha_sharded(p, cfg, devices, C))
+        check(sum(b.numel() * 8 for b in blocks) == D * block_bytes,
+              "the blocks hold local_table_bytes each")
+
+        def rows():
+            norm_total = p.norm / sources.flux_fs_e0(p.si, gr.zmax_eff)
+            return tables(p, gr) + (transport._source_lum(
+                cfg, gr, torch.flip(gr.z[1:], (0,)), p.si, norm_total),)
+
+        (tblG, tblAt, lum_all), t_rows, _ = timed(rows)
+        (flux, flux_fla), t_march, peak_march = timed(
+            lambda: eshard._march_esharded(p, tblG, tblAt, blocks, lum_all,
+                                           cfg, devices, C))
+        out = dict(build_s=t_build, peak_build_gb=peak_build,
+                   tables_and_sources_s=t_rows, march_s=t_march,
+                   ms_per_node=t_march / (Nz - 1) * 1e3,
+                   peak_march_gb=peak_march)
+        if name == "jax":
+            (e_flux, e_fla), t_entry, peak_entry = timed(
+                lambda: eshard.evolve_esharded(p, cfg, devices=devices))
+            bitwise = bool(torch.equal(e_flux, flux)
+                           and torch.equal(e_fla, flux_fla))
+            check(bitwise, "evolve_esharded equals its build and march")
+            out.update(entry_s=t_entry, peak_entry_gb=peak_entry,
+                       entry_bitwise_vs_parts=bitwise)
+            del e_flux, e_fla
+        t0 = time.perf_counter()
+        out.update(gaps(p, cfg, blocks, flux, flux_fla))
+        torch.cuda.synchronize()
+        out.update(referees_s=time.perf_counter() - t0,
+                   flux_max=float(flux.max()),
+                   worst_rel_neg=float(flux.min() / flux.max()),
+                   finite=bool(torch.isfinite(flux).all()))
+        big[name] = out
+        del blocks
+    check(big["strong"]["regeneration_rel"] > 0.5,
+          "regeneration moves the flux at the strong point")
+    launches = [mt.march_tri.launches, mds.march_ds_batched.launches]
+    check(launches == [0, 0], f"no K1 or K2 launch in eshard: {launches}")
+    emit(phase="eshard", small=small, N_bins_E=ESHARD_BIG_BINS,
+         zmax=ESHARD_ZMAX, zmax_cut=ESHARD_ZMAX < ESHARD["zmax"], Nz=Nz,
+         NEXT=NEXT, D=D, C=C, devices=devices, block_bytes=block_bytes,
+         whole_table_bytes=whole_bytes, points=big, k1_k2_launches=launches,
+         card=card)
 
 
 def k1_bound(B, NE, Nz):

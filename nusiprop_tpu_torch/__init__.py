@@ -10,11 +10,11 @@ audit; the two fused marches as hand-written CUDA kernels
 (``csrc/march_tri.cu``, ``csrc/march_ds.cu``, both forward-only);
 gradient inference (``fit``, ``fisher``, ``spectral_loss`` on
 ``torch.autograd`` through the float64 eager marches); batched, chunked,
-checkpointed and device-split grid scans; the command line
+checkpointed and device-split grid scans; the storage-sharded E' march
+(``parallel/eshard``, not exported, as in JAX); the command line
 (``python -m nusiprop_tpu_torch``); and the profiling and cost-model
-helpers. Only ``parallel/eshard`` (the storage-sharded march) is still to
-port (ROADMAP.md). The entry points put their tensors on the card unless
-the caller passes ``device="cpu"``.
+helpers. The entry points put their tensors on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from nusiprop_tpu_torch.api import Evolver, pyprop

@@ -11,7 +11,7 @@ resonance the x-integrals switch to exact moments against a quadratic
 cofactor fit. The JAX module docstring carries the derivations.
 
 Batch convention: see ``kernels_f32``. ``alpha_table_f32`` returns
-(..., N, N).
+(..., N, N), or the (..., N, C) column block of the storage-sharded march.
 """
 
 import math
@@ -126,7 +126,7 @@ def _near(vm, vp, gr2, ds):
 
 
 def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
-                    raw: bool = False, width_factor=None):
+                    raw: bool = False, width_factor=None, cols_block=None):
     """Non-resonant alpha table (s + t/u + tu + st/su channels) in native
     float32.
 
@@ -136,17 +136,34 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
     native-f32 trisolve march. ``Wf`` is the (3,) |U_f|^2 row;
     ``Wf=None`` skips the eigenstate reduction and returns the per-state
     (..., 3, N, N) float64 table (general couplings), where
-    ``width_factor`` scales the scalar width by sum(Q). The column-block
-    form of the storage-sharded march is a later slice of the port.
+    ``width_factor`` scales the scalar width by sum(Q).
+
+    ``cols_block=(c0, C)`` (Python ints) builds only the column block
+    [c0, c0 + C) for the storage-sharded march (``parallel/eshard``): the
+    (..., N, C) block, (..., 3, N, C) per state, or ((..., N, C) f32,
+    pref) raw, with the strict-upper entries of the full build's columns
+    and zero elsewhere (columns past N included). An invalid pair takes
+    the adjacent-pair geometry, so no NaN leaks through a masked entry.
     """
     dev = Em.device
     ga = scalar_width(g, mphi, majorana)
     if width_factor is not None:  # general couplings: width ~ sum(Q)
         ga = ga * width_factor
     N = Em.shape[0]
-    r_np, c_np = np.triu_indices(N, k=1)
-    rows = torch.as_tensor(r_np, device=dev)
-    cols = torch.as_tensor(c_np, device=dev)
+    if cols_block is not None:
+        c0, C = cols_block
+        rows = torch.arange(N, device=dev)[:, None].expand(N, C).reshape(-1)
+        cols_raw = (c0 + torch.arange(C, device=dev))[None, :].expand(
+            N, C).reshape(-1)
+        # strict upper triangle only; out-of-range and lower pairs take a
+        # safe in-range column and are zeroed at assembly
+        valid = (rows < cols_raw) & (cols_raw < N)
+        cols = torch.clamp(cols_raw, max=N - 1)
+    else:
+        r_np, c_np = np.triu_indices(N, k=1)
+        rows = torch.as_tensor(r_np, device=dev)
+        cols = torch.as_tensor(c_np, device=dev)
+        valid = None
 
     # ---- f64 coordinate precompute, per bin (..., 3, N) ----
     mn_c = mn[..., :, None]
@@ -172,7 +189,12 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
     # per-pair gathers (..., 3, NT)
     tp_f = tpb_f[..., rows]
     smp_f = smb_f[..., cols]
+    if valid is not None:
+        # invalid pairs: the adjacent-pair geometry (x+y corner exactly 0)
+        tp_f = torch.where(valid, tp_f, -smp_f)
     ok = (-tpb64[..., rows] >= _COORD_FLOOR) & (spb64[..., cols] >= _COORD_FLOOR)
+    if valid is not None:
+        ok = ok & valid
     dt64 = dt_r64[..., rows]
     ds64 = ds_c64[..., cols]
     xy0_64 = smp_f + tp_f  # exactly 0 for adjacent pairs
@@ -296,27 +318,29 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
             * (dirac_half / (8.0 * PI)))
 
     tot = nr_sum + ch_s
+    if valid is not None:
+        # the s channel carries no floor mask: zero the clamped pairs here
+        tot = torch.where(valid, tot, 0.0)
 
     # ---- eigenstate reduction and assembly ----
-    pref = (g * g) * (g * g)
-    flat = rows * N + cols
-    if Wf is None:  # per-state (..., 3, N, N) for general couplings
-        res_s = (f(1.0 / (2.0 * mn_c)) * tot).to(torch.float64) \
-            * pref[..., None, None]
-        out = torch.zeros(res_s.shape[:-1] + (N * N,), dtype=torch.float64,
+    def assemble(res):
+        """The pairs (..., NT) as the block, or scattered into (..., N, N)."""
+        if valid is not None:
+            return res.reshape(res.shape[:-1] + (N, -1))
+        out = torch.zeros(res.shape[:-1] + (N * N,), dtype=res.dtype,
                           device=dev)
-        out[..., flat] = res_s
-        return out.reshape(res_s.shape[:-1] + (N, N))
+        out[..., rows * N + cols] = res
+        return out.reshape(res.shape[:-1] + (N, N))
+
+    pref = (g * g) * (g * g)
+    if Wf is None:  # per-state (..., 3, N, N) for general couplings
+        return assemble((f(1.0 / (2.0 * mn_c)) * tot).to(torch.float64)
+                        * pref[..., None, None])
     w_e = f(Wf[:, None] / (2.0 * mn_c))
     res32 = torch.sum(w_e * tot, dim=-2)  # (..., NT) f32, normalized by g^4
-    batch = res32.shape[:-1]
     if raw:
-        out32 = torch.zeros(batch + (N * N,), dtype=F32, device=dev)
-        out32[..., flat] = res32
-        return out32.reshape(batch + (N, N)), pref
-    out = torch.zeros(batch + (N * N,), dtype=torch.float64, device=dev)
-    out[..., flat] = res32.to(torch.float64) * pref[..., None]
-    return out.reshape(batch + (N, N))
+        return assemble(res32), pref
+    return assemble(res32.to(torch.float64) * pref[..., None])
 
 
 # ---------------------------------------------------------------------------

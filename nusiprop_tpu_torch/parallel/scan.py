@@ -138,6 +138,15 @@ def _device_key(device) -> torch.device:
     return device
 
 
+def _devices(devices) -> list:
+    """A device list keyed by ``_device_key``; None is every visible CUDA
+    device, and raises where there is none (as ``resolve_device``)."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [_device_key(d) for d in devices]
+
+
 def sharded_grid_scan(params: PhysicsParams, cfg, devices=None,
                       pp_tables=None):
     """Split the parameter batch evenly over ``devices`` and evolve.
@@ -153,10 +162,7 @@ def sharded_grid_scan(params: PhysicsParams, cfg, devices=None,
     ``EvolveResult`` whose fields carry the whole batch (the JAX package
     leaves it sharded and the gather to the caller).
     """
-    if devices is None:
-        resolve_device("cuda")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-    devices = [_device_key(d) for d in devices]
+    devices = _devices(devices)
     n_dev = len(devices)
     batch = int(params.mphi.shape[0])
     if batch % n_dev != 0:

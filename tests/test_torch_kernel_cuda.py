@@ -23,6 +23,9 @@ last tests hold the kernels' forward-only guard (params that require grad
 raise before K1 or K2 is launched, and launch under ``torch.no_grad()``),
 ``fit``/``fisher`` on the card to the eager march (no launch), and the
 checkpointed and device-split scans to one launch per chunk or shard.
+The storage-sharded E' march (``parallel/eshard``, float64, no launch)
+is held to the unsharded march on its own blocks (< 1e-12), and its
+column-block build to the full build's columns, bitwise.
 """
 
 import numpy as np
@@ -403,3 +406,69 @@ def test_checkpointed_scan_on_card(tmp_path):
                                   cfg).flux_fla for s in (0, 2)])
     assert np.array_equal(out["flux_fla"], ref.cpu().numpy())
     assert not list(tmp_path.glob("*.chunk*"))
+
+
+ESHARD_CFG = dict(N_bins_E=256, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                  non_resonant=True, phiphi=False, march="trisolve",
+                  table_dtype="f32")
+# tests/test_sharding.py's JAX point, and one where regeneration is most
+# of the flux (at the JAX point it moves it by ~1e-9)
+ESHARD_POINTS = {"jax": (5e6, 1e-3, MNTOT, 2.0, 6.0),
+                 "strong": (1e5, 1e-2, MNTOT, 2.0, 6.0)}
+
+
+@pytest.mark.parametrize("point", list(ESHARD_POINTS))
+def test_eshard_on_card_matches_unsharded(point):
+    """The storage-sharded E' march at 256 bins over ["cuda:0"] * 4
+    against the unsharded float64 trisolve march on the concatenated
+    blocks: gated relative < 1e-12 (sum association only), flux_fla rtol
+    1e-11. No K1 or K2 launch: the march is float64 eager torch."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32, masses
+    from nusiprop_tpu_torch.parallel import eshard
+
+    dev = _card()
+    cfg = Config(**ESHARD_CFG)
+    p = nt.PhysicsParams.create(*ESHARD_POINTS[point], device=dev)
+    devices = ["cuda:0"] * 4
+    before = (_launches("k1"), _launches("k2"))
+    flux, flux_fla = eshard.evolve_esharded(p, cfg, devices=devices)
+    assert (_launches("k1"), _launches("k2")) == before
+    assert flux.is_cuda and flux.shape == (3, 256)
+    gr = grids.build(cfg, dev)
+    NEXT = gr.Emin_ext.shape[0]
+    C = -(-NEXT // 4)
+    A = torch.cat(eshard.build_alpha_sharded(p, cfg, devices, C),
+                  dim=1)[:NEXT, :NEXT]
+    Wf = torch.as_tensor(mixing.pmns_sq(True)[cfg.flav], device=dev)
+    tblG, tblAt = kernels_nr_f32.nr_gamma_alphatilde_f32(
+        gr.Emin_ext, gr.Emax_ext, masses.mass_spectrum(p.mntot, True), p.g,
+        p.mphi, Wf, majorana=True)
+    ref = transport.evolve_core(p.map(lambda x: x[None]), cfg, "trisolve",
+                                tables=(tblG[None], tblAt[None], A[None]))
+    assert _gated_rel(ref.flux[0], flux, floor=1e-12) < 1e-12
+    torch.testing.assert_close(flux_fla, ref.flux_fla[0], rtol=1e-11,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("D", [3, 4])
+def test_block_build_equals_full_build_on_card(D):
+    """On the card every column block equals the same columns of the full
+    float32 quadrature build, bit for bit, with zero columns past NEXT."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32, masses
+
+    dev = _card()
+    cfg = Config(**ESHARD_CFG)
+    p = nt.PhysicsParams.create(*ESHARD_POINTS["jax"], device=dev)
+    gr = grids.build(cfg, dev)
+    Wf = torch.as_tensor(mixing.pmns_sq(True)[cfg.flav], device=dev)
+    args = (gr.Emin_ext, gr.Emax_ext, masses.mass_spectrum(p.mntot, True),
+            p.g, p.mphi, Wf)
+    full = kernels_nr_f32.alpha_table_f32(*args, majorana=True)
+    N = full.shape[-1]
+    C = -(-N // D)
+    for d in range(D):
+        blk = kernels_nr_f32.alpha_table_f32(*args, majorana=True,
+                                             cols_block=(d * C, C))
+        hi = min((d + 1) * C, N)
+        assert torch.equal(blk[:, :hi - d * C], full[:, d * C:hi]), d
+        assert (blk[:, hi - d * C:] == 0).all()
