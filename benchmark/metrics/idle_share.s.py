@@ -1,0 +1,8 @@
+"""idle_share.s: per cent of the traced window of the s-channel scan in
+which the device ran no operation (kernels, copies, sets)."""
+
+from harness import trace
+
+
+def read(ctx):
+    return trace.idle_share(ctx["trace"])
