@@ -139,8 +139,7 @@ only the band of its table that the march touches, K2 reads DW as one
 row shared by every point) over 3.35 TB/s and
 its operations over the card's peak for their type: 67 TFLOP/s float32
 (K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
-outside the tensor cores; the peaks come from the port's
-``utils/costmodel``. K1's entry also carries ``design_chain_ms``, the
+outside the tensor cores. K1's entry also carries ``design_chain_ms``, the
 serial chain of its present design at assumed latencies: a diagnostic
 beside the bound, not part of it (``k1_bound``).
 """
@@ -154,8 +153,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-from nusiprop_tpu_torch.utils import costmodel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -180,11 +177,11 @@ FIT_CFG = dict(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
 FIT_POINT = dict(mphi=6e5, mntot=0.0587, si=2.0, norm=6.0)
 FIT_STEPS = 60
 CHECKPOINT_CHUNK = 32   # 4 chunks of the production batch of 128
-# the card's peaks live in one place: the port's cost model (the H100 SXM
-# data sheet's figures outside the tensor cores)
-HBM_BYTES_PER_S = costmodel.H100_HBM_BYTES_PER_S
-F32_FLOPS = costmodel.H100_F32_FLOPS
-F64_FLOPS = costmodel.H100_F64_FLOPS
+# the card's peaks: the H100 SXM data sheet's figures outside the tensor
+# cores (TF32 stays off), not measurements
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 # float32 operations per bin and node outside K1's row dot (counted from
 # csrc/march_tri.cu: two Sherman-Morrison passes, c1/c2, cy, x)
 K1_ELEM_FLOPS = 105

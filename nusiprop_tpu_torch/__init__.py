@@ -12,8 +12,9 @@ gradient inference (``fit``, ``fisher``, ``spectral_loss`` on
 ``torch.autograd`` through the float64 eager marches); batched, chunked,
 checkpointed and device-split grid scans; the storage-sharded E' march
 (``parallel/eshard``, not exported, as in JAX); the command line
-(``python -m nusiprop_tpu_torch``); and the profiling and cost-model
-helpers. The entry points put their tensors on the card unless the
+(``python -m nusiprop_tpu_torch``); and the profiling helpers, with the
+named spans the package opens at its layer boundaries while a
+``torch.profiler`` records (``utils/profiling``). The entry points put their tensors on the card unless the
 caller passes ``device="cpu"``.
 """
 

@@ -19,6 +19,7 @@ import numpy as np
 from nusiprop_tpu_torch.config import Config, PhysicsParams, resolve_device
 from nusiprop_tpu_torch.models import transport
 from nusiprop_tpu_torch.models.transport import EvolveResult
+from nusiprop_tpu_torch.utils import profiling
 
 
 class Evolver:
@@ -71,15 +72,17 @@ class Evolver:
     def set_parameters(self, mphi=None, g=None, mntot=None, si=None,
                        norm=None):
         """Modify the physics parameters; invalidates the evolved flux."""
-        kw = dict(mphi=mphi, g=g, mntot=mntot, si=si, norm=norm)
-        updates = {k: v for k, v in kw.items() if v is not None}
-        if updates:
-            current = dict(mphi=self.params.mphi, g=self.params.g,
-                           mntot=self.params.mntot, si=self.params.si,
-                           norm=self.params.norm)
-            current.update(updates)
-            self.params = PhysicsParams.create(**current, device=self.device)
-        self.evolved = False
+        with profiling.span("nt.entry"):
+            kw = dict(mphi=mphi, g=g, mntot=mntot, si=si, norm=norm)
+            updates = {k: v for k, v in kw.items() if v is not None}
+            if updates:
+                current = dict(mphi=self.params.mphi, g=self.params.g,
+                               mntot=self.params.mntot, si=self.params.si,
+                               norm=self.params.norm)
+                current.update(updates)
+                self.params = PhysicsParams.create(**current,
+                                                   device=self.device)
+            self.evolved = False
 
     def _param(name):
         def get(self):
@@ -103,18 +106,19 @@ class Evolver:
         """Evolve the neutrino flux, check the tables' health, and with
         ``audit=True`` then run the per-channel audit (``audit()``; kept on
         ``self.last_audit``), in the JAX package's order."""
-        if self.coupling_matrix is not None:
-            self._result = transport.evolve_general(
-                self.params, self.coupling_matrix, self.config,
-                pp_tables=self._pp_tables)
-        else:
-            self._result = transport.evolve(self.params, self.config,
-                                            pp_tables=self._pp_tables)
-        self.evolved = True
-        self._check_health()
-        if audit:
-            self.audit()
-        return self
+        with profiling.span("nt.entry"):
+            if self.coupling_matrix is not None:
+                self._result = transport.evolve_general(
+                    self.params, self.coupling_matrix, self.config,
+                    pp_tables=self._pp_tables)
+            else:
+                self._result = transport.evolve(self.params, self.config,
+                                                pp_tables=self._pp_tables)
+            self.evolved = True
+            self._check_health()
+            if audit:
+                self.audit()
+            return self
 
     # relative negativity the reference tolerates as roundoff
     # (nuSIprop.hpp:1215-1231) and the free-streaming gate on tau
@@ -211,11 +215,13 @@ class Evolver:
 
     def get_flux(self, i=None, j=None):
         """Flux per mass eigenstate (numpy; see the JAX ``get_flux``)."""
-        return self._get_flux_impl(i, j, "flux", "mass eigenstate")
+        with profiling.span("nt.entry"):
+            return self._get_flux_impl(i, j, "flux", "mass eigenstate")
 
     def get_flux_fla(self, i=None, j=None):
         """Flux per flavor {e, mu, tau} (numpy)."""
-        return self._get_flux_impl(i, j, "flux_fla", "flavor eigenstate")
+        with profiling.span("nt.entry"):
+            return self._get_flux_impl(i, j, "flux_fla", "flavor eigenstate")
 
     def get_energies(self):
         """Energy bin centers [eV], shape (N_bins_E,)."""

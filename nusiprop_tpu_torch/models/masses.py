@@ -11,6 +11,7 @@ shape; masses are floored at MN_FLOOR (see the JAX module docstring).
 import torch
 
 from nusiprop_tpu_torch import constants
+from nusiprop_tpu_torch.utils import profiling
 
 MN_FLOOR = 1e-12
 N_BISECT = 200  # mntot * 2^-200: bisection exact to the last float64 bit
@@ -38,15 +39,16 @@ def lightest_mass(mntot, dmq21, dmq_at):
 def mass_spectrum(mntot, normal_ordering: bool):
     """The three mass eigenvalues, shape ``mntot.shape + (3,)``
     (nuSIprop.hpp:184-203)."""
-    if normal_ordering:
-        dmq_at = constants.DMQ31_NO
-        mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
-        mn = torch.stack([mL, torch.sqrt(constants.DMQ21 + mL * mL),
-                          torch.sqrt(dmq_at + mL * mL)], dim=-1)
-    else:
-        dmq_at = constants.DMQ32_IO
-        mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
-        m2 = torch.sqrt(mL * mL - dmq_at)
-        m1 = torch.sqrt(m2 * m2 - constants.DMQ21)
-        mn = torch.stack([m1, m2, mL], dim=-1)
-    return torch.clamp(mn, min=MN_FLOOR)
+    with profiling.span("nt.masses"):
+        if normal_ordering:
+            dmq_at = constants.DMQ31_NO
+            mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
+            mn = torch.stack([mL, torch.sqrt(constants.DMQ21 + mL * mL),
+                              torch.sqrt(dmq_at + mL * mL)], dim=-1)
+        else:
+            dmq_at = constants.DMQ32_IO
+            mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
+            m2 = torch.sqrt(mL * mL - dmq_at)
+            m1 = torch.sqrt(m2 * m2 - constants.DMQ21)
+            mn = torch.stack([m1, m2, mL], dim=-1)
+        return torch.clamp(mn, min=MN_FLOOR)

@@ -20,6 +20,7 @@ import torch
 from nusiprop_tpu_torch import constants
 from nusiprop_tpu_torch.ops import specfun as sf
 from nusiprop_tpu_torch.ops.quadrature import gl3_segmented
+from nusiprop_tpu_torch.utils import profiling
 
 PI4 = math.pi**4
 
@@ -92,13 +93,14 @@ def flux_fs_e0(si, zmax_eff):
     """Free-streaming flux at the pivot energy (nuSIprop.hpp:666-692):
     100-segment GL3 of (1+z)^-si SFR(z)/H(z) over [0, zmax_eff].
     Returns a tensor of ``si``'s shape."""
-    si = _f64(si)[..., None]
+    with profiling.span("nt.sources"):
+        si = _f64(si)[..., None]
 
-    def f(z):
-        return (1.0 + z) ** (-si) * get_SFR(z) / get_H(z)
+        def f(z):
+            return (1.0 + z) ** (-si) * get_SFR(z) / get_H(z)
 
-    return gl3_segmented(f, 0.0, zmax_eff, constants.N_INTEG_Z,
-                         device=si.device)
+        return gl3_segmented(f, 0.0, zmax_eff, constants.N_INTEG_Z,
+                             device=si.device)
 
 
 def lum_times_E(z, Em, Ep, si, norm_total):

@@ -47,6 +47,7 @@ from nusiprop_tpu_torch.config import Config, PhysicsParams
 from nusiprop_tpu_torch.models import (grids, kernels, kernels_f32, masses,
                                        mixing, sources)
 from nusiprop_tpu_torch.ops.precision import exact_f32_matmul
+from nusiprop_tpu_torch.utils import profiling
 
 # bins coarser than this keep the f64 closed forms (the f32 GL3 table
 # build's error scales as bin-width^6; transport._use_f32_alpha in JAX)
@@ -187,17 +188,19 @@ def _source_lum(cfg: Config, gr, zs, si, norm_total):
     registered source keeps the per-node contract (scalar z, si and
     norm_total) and is vmapped over the nodes and the points.
     ``si``/``norm_total`` have the batch shape."""
-    if cfg.source in sources.BUILTIN_SOURCES:
-        return sources.lum(cfg.source, zs[:, None], gr.Emin, gr.Emax,
-                           si[..., None, None], norm_total[..., None, None])
+    with profiling.span("nt.sources"):
+        if cfg.source in sources.BUILTIN_SOURCES:
+            return sources.lum(cfg.source, zs[:, None], gr.Emin, gr.Emax,
+                               si[..., None, None],
+                               norm_total[..., None, None])
 
-    def node(z, s, n):
-        return sources.lum(cfg.source, z, gr.Emin, gr.Emax, s, n)
+        def node(z, s, n):
+            return sources.lum(cfg.source, z, gr.Emin, gr.Emax, s, n)
 
-    nodes = torch.func.vmap(node, in_dims=(0, None, None))
-    out = torch.func.vmap(nodes, in_dims=(None, 0, 0))(
-        zs, si.reshape(-1), norm_total.reshape(-1))
-    return out.reshape(si.shape + out.shape[-2:])
+        nodes = torch.func.vmap(node, in_dims=(0, None, None))
+        out = torch.func.vmap(nodes, in_dims=(None, 0, 0))(
+            zs, si.reshape(-1), norm_total.reshape(-1))
+        return out.reshape(si.shape + out.shape[-2:])
 
 
 def _sum3(x):
@@ -322,32 +325,33 @@ def _trisolve_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
     PT = pref_z / (N0*S) (target-row scale), so the in-march system is
     I - diag(PT * wu/s) (A32win * CS) against the NORMALIZED table.
     """
-    w = window if window is not None else (lambda x: x)
-    (steps, idx, inv_dE, ndfac_a, pref_a, G_w, At_w,
-     src_counts, S, S_old, N0, N0S) = _f32_precond_common(
-        cfg, gr, params, norm_total, tblG, tblAt, w)
+    with profiling.span("nt.rows"):
+        w = window if window is not None else (lambda x: x)
+        (steps, idx, inv_dE, ndfac_a, pref_a, G_w, At_w,
+         src_counts, S, S_old, N0, N0S) = _f32_precond_common(
+            cfg, gr, params, norm_total, tblG, tblAt, w)
 
-    # RANGE SAFETY groupings: pref_A (g^4) pairs with N0S (large) BEFORE
-    # meeting ndfac/dE (small); pref_a (~1e31) meets 1/N0S directly.
-    nd_dE = w(ndfac_a[:, None] * inv_dE[None, :])
-    pref_A = torch.as_tensor(pref_A, dtype=torch.float64,
-                             device=N0.device)[..., None, None]
-    rows = dict(
-        PG=w(w(pref_a[:, None] * G_w) * inv_dE[None, :]),
-        PAt=w(w(pref_a[:, None] * At_w) * inv_dE[None, :]),
-        CO=w(At_w * inv_dE[None, :]),
-        R0=w(S_old / S),
-        S0=w(src_counts / N0S),
-        CS=w(w(pref_A * N0S) * nd_dE),
-        PT=w(pref_a[:, None] / N0S),
-    )
-    # parameter-independent rows (e.g. the dsnb source) carry no batch
-    # axis yet: every row and the scale come back at the batch shape
-    bshape = params.mphi.shape + S.shape[-2:]
-    xs = tuple(rows[k].to(torch.float32).expand(bshape).contiguous()
-               for k in ("PG", "PAt", "CO", "R0", "S0", "CS", "PT"))
-    scale = w(N0[..., 0, :] * S[..., -1, :])
-    return xs + (steps,), scale.expand(bshape[:-2] + bshape[-1:])
+        # RANGE SAFETY groupings: pref_A (g^4) pairs with N0S (large) BEFORE
+        # meeting ndfac/dE (small); pref_a (~1e31) meets 1/N0S directly.
+        nd_dE = w(ndfac_a[:, None] * inv_dE[None, :])
+        pref_A = torch.as_tensor(pref_A, dtype=torch.float64,
+                                 device=N0.device)[..., None, None]
+        rows = dict(
+            PG=w(w(pref_a[:, None] * G_w) * inv_dE[None, :]),
+            PAt=w(w(pref_a[:, None] * At_w) * inv_dE[None, :]),
+            CO=w(At_w * inv_dE[None, :]),
+            R0=w(S_old / S),
+            S0=w(src_counts / N0S),
+            CS=w(w(pref_A * N0S) * nd_dE),
+            PT=w(pref_a[:, None] / N0S),
+        )
+        # parameter-independent rows (e.g. the dsnb source) carry no batch
+        # axis yet: every row and the scale come back at the batch shape
+        bshape = params.mphi.shape + S.shape[-2:]
+        xs = tuple(rows[k].to(torch.float32).expand(bshape).contiguous()
+                   for k in ("PG", "PAt", "CO", "R0", "S0", "CS", "PT"))
+        scale = w(N0[..., 0, :] * S[..., -1, :])
+        return xs + (steps,), scale.expand(bshape[:-2] + bshape[-1:])
 
 
 def _rank1_f32_rows(cfg: Config, gr, params: PhysicsParams, norm_total,
@@ -558,34 +562,45 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
     """
     from nusiprop_tpu_torch.models import kernels_nr_f32
 
-    march = _resolve_march(cfg, params.device)
-    if march in ("rank1", "rank1_f32") and not per_state:
-        raise ValueError(
-            f"build_tables builds the trisolve and loop marches' tables; "
-            f"march={march!r} builds its own inside evolve_core")
-    dev = params.device
-    gr = grids.build(cfg, dev)
-    Wf = None if per_state else torch.as_tensor(
-        mixing.pmns_sq(cfg.normal_ordering)[cfg.flav], device=dev)
-    if mn is None:
-        mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
-    args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
-    wkw = dict(width_factor=width_factor) if per_state else {}
-    kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
-              phiphi=cfg.phiphi, pp_tables=pp_tables, **wkw)
-    pp = cfg.phiphi and cfg.non_resonant
-    use_f32_march = (not per_state
-                     and march in ("trisolve_f32", "trisolve_pallas"))
-    use_f32_alpha = _use_f32_alpha(cfg, dev, allow_f32_march=per_state)
-    gt32 = (kernels_nr_f32.nr_gamma_alphatilde_f32(*args,
-                                                    majorana=cfg.majorana)
-            if not per_state and (use_f32_march or use_f32_alpha) else None)
+    with profiling.span("nt.tables"):
+        march = _resolve_march(cfg, params.device)
+        if march in ("rank1", "rank1_f32") and not per_state:
+            raise ValueError(
+                f"build_tables builds the trisolve and loop marches' tables; "
+                f"march={march!r} builds its own inside evolve_core")
+        dev = params.device
+        gr = grids.build(cfg, dev)
+        Wf = None if per_state else torch.as_tensor(
+            mixing.pmns_sq(cfg.normal_ordering)[cfg.flav], device=dev)
+        if mn is None:
+            mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+        args = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+        wkw = dict(width_factor=width_factor) if per_state else {}
+        kw = dict(majorana=cfg.majorana, non_resonant=cfg.non_resonant,
+                  phiphi=cfg.phiphi, pp_tables=pp_tables, **wkw)
+        pp = cfg.phiphi and cfg.non_resonant
+        use_f32_march = (not per_state
+                         and march in ("trisolve_f32", "trisolve_pallas"))
+        use_f32_alpha = _use_f32_alpha(cfg, dev, allow_f32_march=per_state)
+        gt32 = (kernels_nr_f32.nr_gamma_alphatilde_f32(
+                    *args, majorana=cfg.majorana)
+                if not per_state and (use_f32_march or use_f32_alpha)
+                else None)
 
-    out = []
-    for i, (table, fn) in enumerate((("gamma", kernels.gamma_table),
-                                     ("alphatilde", kernels.alphatilde_table),
-                                     ("alpha", kernels.alpha_table))):
-        if table != "alpha" and gt32 is not None:
+        def channel_sum(fn):
+            acc = None
+            for ch in _channels(cfg):
+                t = fn(*args, channel=ch, **kw)
+                acc = t if acc is None else acc + t
+            return acc
+
+        out = []
+        for i, (table, fn) in enumerate(
+                (("gamma", kernels.gamma_table),
+                 ("alphatilde", kernels.alphatilde_table))):
+            if gt32 is None:
+                out.append(channel_sum(fn))
+                continue
             acc = gt32[i]
             # Dirac keeps the alphaTilde s-t/s-u interference in f64; the
             # pp Gamma/alphaTilde channels stay f64 on every path
@@ -594,28 +609,29 @@ def build_tables(params: PhysicsParams, cfg: Config, pp_tables=None,
             extra += ["pp"] if pp else []
             for ch in extra:
                 acc = acc + fn(*args, channel=ch, **kw)
-        elif table == "alpha" and use_f32_march:
-            a32, pref = kernels_nr_f32.alpha_table_f32(
-                *args, majorana=cfg.majorana, raw=True)
-            if pp:
-                # pref IS g^4: the pp channel joins normalized, in float32
-                a32 = a32 + kernels.alpha_pp_table_norm(
-                    gr.Emin_ext, gr.Emax_ext, mn, params.mphi, Wf,
-                    majorana=cfg.majorana, pp_tables=_pp_f32(pp_tables))
-            acc = (a32, pref)
-        elif table == "alpha" and use_f32_alpha:
-            acc = kernels_nr_f32.alpha_table_f32(
-                *args, majorana=cfg.majorana, **wkw)
-            if pp:
-                acc = acc + fn(*args, channel="pp",
-                               **dict(kw, pp_tables=_pp_f32(pp_tables)))
-        else:
-            acc = None
-            for ch in _channels(cfg):
-                t = fn(*args, channel=ch, **kw)
-                acc = t if acc is None else acc + t
-        out.append(acc)
-    return tuple(out)
+            out.append(acc)
+
+        with profiling.span("nt.tables.alpha"):
+            fn = kernels.alpha_table
+            if use_f32_march:
+                a32, pref = kernels_nr_f32.alpha_table_f32(
+                    *args, majorana=cfg.majorana, raw=True)
+                if pp:
+                    # pref IS g^4: the pp channel joins normalized, in
+                    # float32
+                    a32 = a32 + kernels.alpha_pp_table_norm(
+                        gr.Emin_ext, gr.Emax_ext, mn, params.mphi, Wf,
+                        majorana=cfg.majorana, pp_tables=_pp_f32(pp_tables))
+                acc = (a32, pref)
+            elif use_f32_alpha:
+                acc = kernels_nr_f32.alpha_table_f32(
+                    *args, majorana=cfg.majorana, **wkw)
+                if pp:
+                    acc = acc + fn(*args, channel="pp",
+                                   **dict(kw, pp_tables=_pp_f32(pp_tables)))
+            else:
+                acc = channel_sum(fn)
+        return (*out, acc)
 
 
 def evolve_core(params: PhysicsParams, cfg: Config, march: str,
@@ -858,21 +874,22 @@ def evolve_batched(params: PhysicsParams, cfg: Config,
     phi-phi lookups leave the tables raises ``RuntimeError`` before
     anything is built (the JAX package checks in ``evolve`` and
     ``evolve_general`` only; here every entry point checks)."""
-    if pp_tables is not None:
-        pp_tables = pp_tables.to(params.device)
-    if cfg.extrapolation == "raise":
-        check_pp_extrapolation(params, cfg, pp_tables)
-    march = _resolve_march(cfg, params.device)
-    if march == "trisolve_pallas":
-        from nusiprop_tpu_torch.ops import march_tri
+    with profiling.span("nt.evolve"):
+        if pp_tables is not None:
+            pp_tables = pp_tables.to(params.device)
+        if cfg.extrapolation == "raise":
+            check_pp_extrapolation(params, cfg, pp_tables)
+        march = _resolve_march(cfg, params.device)
+        if march == "trisolve_pallas":
+            from nusiprop_tpu_torch.ops import march_tri
 
-        return march_tri.evolve_trisolve_fused(params, cfg,
-                                               pp_tables=pp_tables)
-    if march == "rank1" and params.device.type == "cuda":
-        from nusiprop_tpu_torch.ops import march_ds
+            return march_tri.evolve_trisolve_fused(params, cfg,
+                                                   pp_tables=pp_tables)
+        if march == "rank1" and params.device.type == "cuda":
+            from nusiprop_tpu_torch.ops import march_ds
 
-        return march_ds.evolve_rank1_fused(params, cfg)
-    return evolve_core(params, cfg, march, pp_tables=pp_tables)
+            return march_ds.evolve_rank1_fused(params, cfg)
+        return evolve_core(params, cfg, march, pp_tables=pp_tables)
 
 
 def evolve(params: PhysicsParams, cfg: Config, pp_tables=None) -> EvolveResult:

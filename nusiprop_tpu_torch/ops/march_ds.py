@@ -37,6 +37,7 @@ from nusiprop_tpu_torch.config import Config, PhysicsParams
 from nusiprop_tpu_torch.models import (grids, kernels, masses, mixing,
                                        sources, transport)
 from nusiprop_tpu_torch.ops import cuda_build
+from nusiprop_tpu_torch.utils import profiling
 
 ROW_NAMES = ("PG", "PAt", "PL", "CO", "CW", "DW")
 # exact power of two: CW (~1e-37 raw) is scaled up, DW down; every use
@@ -71,59 +72,60 @@ def prepare_rank1_inputs(params: PhysicsParams, cfg: Config):
     signal of the tables built here (transport._table_health; a ratio, so
     the unscaled rho gives the same worst entry as the scaled one of
     ``transport.evolve_core``)."""
-    if cfg.non_resonant:
-        raise ValueError("the fused rank1 march implements the "
-                         "s-channel-only configuration (rank1)")
-    dev = params.device
-    gr = grids.build(cfg, dev)
-    NE = cfg.N_bins_E
-    Nz = gr.N_steps_z
-    W = mixing.pmns_sq(cfg.normal_ordering)[cfg.flav]
-    Wf = torch.as_tensor(W, device=dev)
-    mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
-    norm_total = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
+    with profiling.span("nt.route"):
+        if cfg.non_resonant:
+            raise ValueError("the fused rank1 march implements the "
+                             "s-channel-only configuration (rank1)")
+        dev = params.device
+        gr = grids.build(cfg, dev)
+        NE = cfg.N_bins_E
+        Nz = gr.N_steps_z
+        W = mixing.pmns_sq(cfg.normal_ordering)[cfg.flav]
+        Wf = torch.as_tensor(W, device=dev)
+        mn = masses.mass_spectrum(params.mntot, cfg.normal_ordering)
+        norm_total = params.norm / sources.flux_fs_e0(params.si, gr.zmax_eff)
 
-    tables = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
-    kw = dict(majorana=cfg.majorana, non_resonant=False, phiphi=False)
-    tblG = kernels.gamma_table(*tables, **kw)
-    tblAt = kernels.alphatilde_table(*tables, **kw)
-    rho = kernels.alpha_s_rho(*tables, majorana=cfg.majorana)
-    dE_ext = gr.Emax_ext - gr.Emin_ext
-    inv_dE = 1.0 / (gr.Emax - gr.Emin)
+        tables = (gr.Emin_ext, gr.Emax_ext, mn, params.g, params.mphi, Wf)
+        kw = dict(majorana=cfg.majorana, non_resonant=False, phiphi=False)
+        tblG = kernels.gamma_table(*tables, **kw)
+        tblAt = kernels.alphatilde_table(*tables, **kw)
+        rho = kernels.alpha_s_rho(*tables, majorana=cfg.majorana)
+        dE_ext = gr.Emax_ext - gr.Emin_ext
+        inv_dE = 1.0 / (gr.Emax - gr.Emin)
 
-    steps = torch.arange(Nz - 1, 0, -1, device=dev)
-    zim = gr.z[steps - 1]
-    zi = gr.z[steps]
-    ndfac = sources.get_nd(zim) / (1.0 + zim) ** 2
-    pref = (1.0 + zim) * gr.dlogz / sources.get_H(zim)
+        steps = torch.arange(Nz - 1, 0, -1, device=dev)
+        zim = gr.z[steps - 1]
+        zi = gr.z[steps]
+        ndfac = sources.get_nd(zim) / (1.0 + zim) ** 2
+        pref = (1.0 + zim) * gr.dlogz / sources.get_H(zim)
 
-    idx = (steps - 1)[:, None] + torch.arange(NE, device=dev)[None, :]
-    G_w = tblG[..., idx] * ndfac[:, None]
-    At_w = tblAt[..., idx] * ndfac[:, None]
-    rho_w = rho[..., idx] * ndfac[:, None]
-    d_w = dE_ext[idx]
-    lum = transport._source_lum(cfg, gr, zi, params.si, norm_total)
+        idx = (steps - 1)[:, None] + torch.arange(NE, device=dev)[None, :]
+        G_w = tblG[..., idx] * ndfac[:, None]
+        At_w = tblAt[..., idx] * ndfac[:, None]
+        rho_w = rho[..., idx] * ndfac[:, None]
+        d_w = dE_ext[idx]
+        lum = transport._source_lum(cfg, gr, zi, params.si, norm_total)
 
-    # RANGE SAFETY groupings of the JAX code: the scale goes onto the
-    # small factor first (rho*inv_dE ~ 1e-45 before *RS, d_w*pref ~ 1e39
-    # before /RS); DW also absorbs the bare implicit prefactor
-    rows = dict(
-        PG=pref[:, None] * G_w * inv_dE[None, :],    # Zdr Gamma part
-        PAt=pref[:, None] * At_w * inv_dE[None, :],  # Zdr alphaTilde part
-        PL=pref[:, None] * lum,                      # source counts
-        CO=At_w * inv_dE[None, :],                   # 3x3 coupling
-        CW=rho_w * (inv_dE[None, :] * _RS),          # cum accumulation wt
-        DW=d_w * (pref[:, None] / _RS),              # bin width x pref
-    )
-    shape = params.mphi.shape + (Nz - 1, NE)
-    out = {name: torch.flip(arr if name == "DW" else arr.expand(shape),
-                            dims=(-1,)).contiguous()
-           for name, arr in rows.items()}
-    health = transport._table_health([tblG, tblAt, rho],
-                                     transport._march_tau(gr, tblG))
-    meta = dict(NE=NE, n_steps=Nz - 1, W=tuple(float(w) for w in W),
-                mn=mn, health=health)
-    return out, meta
+        # RANGE SAFETY groupings of the JAX code: the scale goes onto the
+        # small factor first (rho*inv_dE ~ 1e-45 before *RS, d_w*pref ~ 1e39
+        # before /RS); DW also absorbs the bare implicit prefactor
+        rows = dict(
+            PG=pref[:, None] * G_w * inv_dE[None, :],    # Zdr Gamma part
+            PAt=pref[:, None] * At_w * inv_dE[None, :],  # Zdr alphaTilde part
+            PL=pref[:, None] * lum,                      # source counts
+            CO=At_w * inv_dE[None, :],                   # 3x3 coupling
+            CW=rho_w * (inv_dE[None, :] * _RS),          # cum accumulation wt
+            DW=d_w * (pref[:, None] / _RS),              # bin width x pref
+        )
+        shape = params.mphi.shape + (Nz - 1, NE)
+        out = {name: torch.flip(arr if name == "DW" else arr.expand(shape),
+                                dims=(-1,)).contiguous()
+               for name, arr in rows.items()}
+        health = transport._table_health([tblG, tblAt, rho],
+                                         transport._march_tau(gr, tblG))
+        meta = dict(NE=NE, n_steps=Nz - 1, W=tuple(float(w) for w in W),
+                    mn=mn, health=health)
+        return out, meta
 
 
 def march_ds_plain(rows, W, n_steps: int):

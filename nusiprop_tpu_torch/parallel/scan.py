@@ -15,6 +15,7 @@ import torch
 
 from nusiprop_tpu_torch.config import PhysicsParams, _FIELDS, resolve_device
 from nusiprop_tpu_torch.models import transport
+from nusiprop_tpu_torch.utils import profiling
 
 
 def stack_params(points, device="cuda") -> PhysicsParams:
@@ -54,15 +55,16 @@ def grid_scan(params: PhysicsParams, cfg, chunk_size: int | None = None,
     unchunked one bitwise where the march is elementwise over the batch,
     and to round-off where a batched product or triangular solve sums in
     an order that depends on the batch size (trisolve, trisolve_f32)."""
-    batch = params.mphi.shape[0]
-    if pp_tables is not None:
-        pp_tables = pp_tables.to(params.device)
-    if not chunk_size or chunk_size >= batch:
-        return transport.evolve_batched(params, cfg, pp_tables=pp_tables)
-    parts = [transport.evolve_batched(
-        params.map(lambda x: x[s:s + chunk_size]), cfg, pp_tables=pp_tables)
-        for s in range(0, batch, chunk_size)]
-    return transport.EvolveResult(*(torch.cat(fs) for fs in zip(*parts)))
+    with profiling.span("nt.entry"):
+        batch = params.mphi.shape[0]
+        if pp_tables is not None:
+            pp_tables = pp_tables.to(params.device)
+        if not chunk_size or chunk_size >= batch:
+            return transport.evolve_batched(params, cfg, pp_tables=pp_tables)
+        parts = [transport.evolve_batched(
+            params.map(lambda x: x[s:s + chunk_size]), cfg,
+            pp_tables=pp_tables) for s in range(0, batch, chunk_size)]
+        return transport.EvolveResult(*(torch.cat(fs) for fs in zip(*parts)))
 
 
 def checkpointed_grid_scan(params: PhysicsParams, cfg, path,

@@ -1,7 +1,27 @@
 """Lightweight profiling helpers (port of ``nusiprop_tpu.utils.profiling``):
-a wall-clock timer with a device fence, and a context manager around
+a wall-clock timer with a device fence, a context manager around
 ``torch.profiler`` whose Chrome trace opens in Perfetto or
-chrome://tracing.
+chrome://tracing, and the named spans the package opens at its layer
+boundaries.
+
+The spans (``span``) are the program's own tracing. They exist only while
+a ``torch.profiler`` records (``trace`` below, or any
+``torch.profiler.profile``), and then appear in its trace as host
+operations named ``nt.*`` on the profiler's clock, above the operations
+and kernel launches they hold. With no profiler recording, a span is one
+shared no-op context. The set, and the layer each marks:
+
+  nt.entry         Evolver.set_parameters / evolve / get_flux(_fla),
+                   parallel.scan.grid_scan                     (entry)
+  nt.evolve        transport.evolve_batched, once per chunk    (dispatch)
+  nt.masses        masses.mass_spectrum (the 200-step bisection)
+  nt.sources       sources.flux_fs_e0, transport._source_lum
+  nt.tables        transport.build_tables          (table and row build)
+  nt.tables.alpha  its alpha channel (kernels_nr_f32.alpha_table_f32)
+  nt.rows          transport._trisolve_f32_rows
+  nt.route         march_ds.prepare_rank1_inputs      (s-channel route)
+
+No span opens inside a loop, and none inside itself.
 """
 
 import contextlib
@@ -9,6 +29,7 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class Timer:
@@ -59,3 +80,19 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# the context every span is while no profiler records: shared, reentrant
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named span of the program: while a ``torch.profiler`` records, a
+    profiler range ``name`` (a host operation of the trace, on the
+    profiler's clock, holding the operations and launches issued inside
+    it); otherwise the shared no-op context ``_OFF``, which calls neither
+    the profiler nor the dispatcher. The range calls no dispatcher op
+    either, so a span also opens inside ``torch.func`` transforms."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF

@@ -1,5 +1,5 @@
 """The port's command line (``python -m nusiprop_tpu_torch``), its
-profiling and cost-model helpers, and its package surface, against the JAX
+profiling helpers, and its package surface, against the JAX
 package's, on the CPU (``--cpu``).
 
 * tests/test_cli.py's five cases through the port's ``main``;
@@ -9,9 +9,6 @@ package's, on the CPU (``--cpu``).
   tests/data/data_massless.txt; a scan's flux within 1e-8 gated of the
   JAX CLI's scan (DSNB; measured 7.6e-11);
 * ``utils/profiling``: ``Timer`` laps, ``trace`` writes a Chrome trace;
-* ``utils/costmodel``: ``roofline_fields`` equals JAX's for the same
-  counts with the peaks overridden to JAX's, and takes the H100's data
-  sheet peaks by default;
 * the port's ``__all__`` is the JAX package's, and every module of the port
   imports with ``jax`` and ``nusiprop_tpu`` blocked.
 """
@@ -28,13 +25,12 @@ import torch
 
 import nusiprop_tpu as nu
 from nusiprop_tpu import __main__ as jcli
-from nusiprop_tpu.utils import costmodel as jcost
 
 import nusiprop_tpu_torch as nt
 from nusiprop_tpu_torch import constants as c
 from nusiprop_tpu_torch.__main__ import _backend, _parse_axis, _resolve_mntot
 from nusiprop_tpu_torch.__main__ import main
-from nusiprop_tpu_torch.utils import costmodel, profiling
+from nusiprop_tpu_torch.utils import profiling
 from nusiprop_tpu_torch.utils import io as nio
 
 torch.set_num_threads(2)
@@ -178,7 +174,7 @@ def test_cli_without_cpu_raises_without_a_card(sub, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# utils/profiling, utils/costmodel
+# utils/profiling
 # ---------------------------------------------------------------------------
 
 def test_timer_laps():
@@ -205,37 +201,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(fh)["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
     assert len(prof.key_averages()) > 0
-
-
-REGIMES = [("s_channel", 1024, 500, 79, 0.05, None),
-           ("s_channel_f64", 16, 100, 33, 0.01, None),
-           ("non_resonant", 128, 500, 79, 0.8, None),
-           ("phiphi", 64, 500, 79, 0.5, (300, 50)),
-           ("phiphi", 64, 500, 79, 0.5, None),
-           ("unknown", 8, 100, 33, 1.0, None),
-           ("s_channel", 8, 100, 33, 0.0, None)]
-
-
-@pytest.mark.parametrize("regime", REGIMES, ids=lambda r: str(r[0]))
-def test_roofline_matches_jax_with_jax_peaks(regime, monkeypatch):
-    monkeypatch.setenv("BENCH_PEAK_FLOPS", str(jcost.V5E_PEAK_FLOPS))
-    monkeypatch.setenv("BENCH_PEAK_BYTES", str(jcost.V5E_PEAK_BYTES))
-    name, B, NE, Nz, wall, pp = regime
-    assert costmodel.regime_model(name, B, NE, Nz, pp) == \
-        jcost.regime_model(name, B, NE, Nz, pp)
-    assert costmodel.roofline_fields(name, B, NE, Nz, wall, pp) == \
-        jcost.roofline_fields(name, B, NE, Nz, wall, pp)
-
-
-def test_default_peaks_are_the_h100s(monkeypatch):
-    monkeypatch.delenv("BENCH_PEAK_FLOPS", raising=False)
-    monkeypatch.delenv("BENCH_PEAK_BYTES", raising=False)
-    assert costmodel.peaks() == (67e12, 3.35e12)
-    assert costmodel.H100_F64_FLOPS == 34e12
-    f = costmodel.roofline_fields("non_resonant", 128, 500, 79, 0.8)
-    flops, nbytes = costmodel.regime_model("non_resonant", 128, 500, 79)
-    assert f["mfu"] == round(flops / 0.8 / 67e12, 5)
-    assert f["hbm_frac"] == round(nbytes / 0.8 / 3.35e12, 5)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,9 @@ raise before K1 or K2 is launched, and launch under ``torch.no_grad()``),
 checkpointed and device-split scans to one launch per chunk or shard.
 The storage-sharded E' march (``parallel/eshard``, float64, no launch)
 is held to the unsharded march on its own blocks (< 1e-12), and its
-column-block build to the full build's columns, bitwise.
+column-block build to the full build's columns, bitwise. The last test
+holds the package's spans (``utils/profiling.span``) and K2 to one clock
+under the profiler.
 """
 
 import numpy as np
@@ -472,3 +474,41 @@ def test_block_build_equals_full_build_on_card(D):
         hi = min((d + 1) * C, N)
         assert torch.equal(blk[:, :hi - d * C], full[:, d * C:hi]), d
         assert (blk[:, hi - d * C:] == 0).all()
+
+
+def test_k2_launches_inside_the_evolve_span_on_card(tmp_path):
+    """The spans and the kernels share the profiler's clock: under a
+    profiler, K2's launch call (matched to the kernel by its correlation
+    id) falls inside ``nt.evolve`` as the innermost ``nt.`` span, and K2
+    starts on the card no earlier than that call."""
+    import json
+
+    from nusiprop_tpu_torch.utils import profiling
+
+    dev = _card()
+    cfg = Config(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=False, phiphi=False, march="rank1")
+    p = nt.param_grid([1e5, 5e6], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                      device=dev)
+    nt.grid_scan(p, cfg)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        nt.grid_scan(p, cfg)
+        torch.cuda.synchronize()
+    with open(tmp_path / "trace.json") as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    k2 = [e for e in events if e.get("cat") == "kernel"
+          and "march_ds_kernel" in e["name"]]
+    assert len(k2) == 1
+    corr = k2[0]["args"]["correlation"]
+    launch = [e for e in events
+              if str(e["name"]).startswith(("cudaLaunch", "cuLaunch"))
+              and e.get("args", {}).get("correlation") == corr]
+    assert len(launch) == 1
+    t = float(launch[0]["ts"])
+    open_spans = [e for e in events if str(e["name"]).startswith("nt.")
+                  and float(e["ts"]) <= t < float(e["ts"]) + float(e["dur"])]
+    innermost = max(open_spans, key=lambda e: float(e["ts"]))
+    assert innermost["name"] == "nt.evolve"
+    assert float(k2[0]["ts"]) >= t

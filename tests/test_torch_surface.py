@@ -25,6 +25,9 @@ NOT_PORTED = {
                          "native/, with no JAX code: the CPU cross-check",
     "ops/ds.py": "double-single f32 pairs emulate f64 only because Mosaic "
                  "has no f64; K2 runs in native fp64 on the card",
+    "utils/costmodel.py": "modeled FLOPs over a host wall, read by nothing; "
+                          "the benchmark reads the kernels' rooflines from "
+                          "the device trace",
 }
 # (JAX module, name) -> the port's name in the same module, and why
 RENAMED = {
