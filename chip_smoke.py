@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the two hand-written kernels from the checkout, one nvcc each,
+Builds the three hand-written kernels from the checkout, one nvcc each,
 started together: K1, the non-resonant fused march
-(nusiprop_tpu_torch/csrc/march_tri.cu), and K2, the s-channel fused
-march in fp64 (nusiprop_tpu_torch/csrc/march_ds.cu). Then it runs, each
+(nusiprop_tpu_torch/csrc/march_tri.cu), K2, the s-channel fused march in
+fp64 (nusiprop_tpu_torch/csrc/march_ds.cu), and the mass spectrum's
+200-step bisection in fp64 (nusiprop_tpu_torch/csrc/masses.cu), which
+every path below launches once per evolve or chunk. Then it runs, each
 phase printing one JSON line:
 
   build       nvcc builds (ptxas register/smem report)
@@ -99,8 +101,12 @@ phase printing one JSON line:
               median ms per step and the peak memory; the reverse-mode
               gradient of tests/test_grad.py's _loss (40 bins) against
               central differences (1e-5); a grad-enabled evolve raises
-              before K2 is launched
-  fisher      fisher at that point: its ridge gates and wall time
+              before K2 is launched; the mass kernel's launches in the
+              fit and its twin's runs on the card (none: mntot is no
+              fit field)
+  fisher      fisher at that point: its ridge gates and wall time; no
+              launch of the mass kernel and at least one run of its twin
+              on the card (inside torch.func.jvp the twin is taken)
   sharded     (after rank1_route) sharded_grid_scan of the s-channel batch
               of 1024 over the visible devices and over ["cuda:0"] * 2:
               bitwise equal to grid_scan, one K2 launch per shard
@@ -128,8 +134,13 @@ spills from the build phase; K2's entry adds its share of the bound, its
 time at 2048 bins, and its launch design at 500 and at 2048 bins: threads,
 bins per thread, block barriers per node, shared memory, registers and
 local-memory bytes per thread, and the resident blocks per SM that
-cudaOccupancyMaxActiveBlocksPerMultiprocessor gives),
-the card line, and as the last line
+cudaOccupancyMaxActiveBlocksPerMultiprocessor gives; the mass kernel's
+entry has its launches in each path's run, reset before the run, and the
+twin's runs on the card where there were any; at every shape and
+ordering the main path gave it, the kernel held bitwise against its twin
+on those inputs and on a spread of total masses from 0 to 1.5 eV, its
+CUDA-event time per launch, the twin's time and the bound; and ptxas's
+registers and spills), the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises: the script exits
 non-zero and prints no last line. It needs a CUDA device.
 
@@ -139,7 +150,10 @@ only the band of its table that the march touches, K2 reads DW as one
 row shared by every point) over 3.35 TB/s and
 its operations over the card's peak for their type: 67 TFLOP/s float32
 (K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
-outside the tensor cores. K1's entry also carries ``design_chain_ms``, the
+outside the tensor cores; the mass kernel's, 32 bytes an element and its
+fp64 operations (``masses_bound``: without the latency of the 200
+dependent steps, which bounds it at every batch the main path gives).
+K1's entry also carries ``design_chain_ms``, the
 serial chain of its present design at assumed latencies: a diagnostic
 beside the bound, not part of it (``k1_bound``).
 """
@@ -217,6 +231,12 @@ PHIPHI_G = 0.03
 # each level of the warp scan and of the totals scan)
 K2_NODE_FLOPS = 128
 K2_LEVEL_FLOPS = 3
+# float64 operations of the mass-spectrum kernel (csrc/masses.cu) per
+# bisection step (mid: an add and a multiply; the constraint sum: a
+# multiply, four adds and two square roots; the compare) and per element
+# after the bisection (the last mid, the eigenvalues and the floor)
+MASSES_STEP_FLOPS = 10
+MASSES_SPECTRUM_FLOPS = 8
 # the storage-sharded E' march (parallel/eshard): tests/test_sharding.py's
 # JAX config at 256 bins, then the SURVEY §5 regime at 10,000 bins (NEXT
 # 11,556) over 8 column blocks on this card; the JAX gate of 1e-12
@@ -229,6 +249,15 @@ ESHARD_BIG_BINS = 10000
 ESHARD_BIG_D = 8
 ESHARD_ZMAX = 5.0   # the full redshift depth: no cut
 ESHARD_GATE = 1e-12
+
+
+# the mass-spectrum kernel (csrc/masses.cu) per path of the main path:
+# its launches in the path's run, and the runs of its plain twin on card
+# tensors there (masses_zero, masses_took); and the first total masses of
+# each shape and ordering the main path handed it (record_masses_inputs)
+MASSES_BY_PATH = {}
+MASSES_PLAIN_BY_PATH = {}
+MASSES_INPUTS = {}
 
 
 def emit(**kw):
@@ -254,6 +283,41 @@ def gated_rel(a, b):
     return float(((b - a).abs()[gate] / a.abs()[gate]).max())
 
 
+def masses_zero():
+    from nusiprop_tpu_torch.models import masses
+
+    masses.mass_spectrum.launches = 0
+    masses.mass_spectrum.plain_on_card = 0
+
+
+def masses_took(path):
+    """Record the mass-spectrum kernel's launches and its twin's runs on
+    card tensors since ``masses_zero()`` as ``path``'s; return both."""
+    from nusiprop_tpu_torch.models import masses
+
+    MASSES_BY_PATH[path] = masses.mass_spectrum.launches
+    MASSES_PLAIN_BY_PATH[path] = masses.mass_spectrum.plain_on_card
+    return MASSES_BY_PATH[path], MASSES_PLAIN_BY_PATH[path]
+
+
+def record_masses_inputs():
+    """Keep a copy of the first total masses of each shape and ordering
+    that the main path hands the mass-spectrum kernel (MASSES_INPUTS).
+    Returns the launcher it wraps, to be put back."""
+    from nusiprop_tpu_torch.ops import masses as masses_cuda
+
+    launch = masses_cuda.spectrum
+
+    def recording(mntot, normal_ordering, *args):
+        key = (tuple(mntot.shape), bool(normal_ordering))
+        if key not in MASSES_INPUTS:
+            MASSES_INPUTS[key] = mntot.detach().clone()
+        return launch(mntot, normal_ordering, *args)
+
+    masses_cuda.spectrum = recording
+    return launch
+
+
 def main():
     import torch
 
@@ -266,15 +330,18 @@ def main():
     from nusiprop_tpu_torch.ops import cuda_build
     from nusiprop_tpu_torch.ops import march_ds as mds
     from nusiprop_tpu_torch.ops import march_tri as mt
+    from nusiprop_tpu_torch.ops import masses as masses_cuda
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = cuda_build.build("march_tri", "march_ds")
+    libs = cuda_build.build("march_tri", "march_ds", "masses")
     cuda_build.load("march_tri", mt._declare)
     cuda_build.load("march_ds", mds._declare)
+    cuda_build.load("masses", masses_cuda._declare)
+    launch_masses = record_masses_inputs()
     emit(phase="build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas={name: [ln for ln in log.splitlines() if "ptxas" in ln]
                 for name, log in cuda_build.BUILD_LOG.items()})
@@ -291,9 +358,11 @@ def main():
     # ---- main path, part 1: the user-facing Evolver, one point ----
     ev = Evolver(mphi=1e6, g=1e-3, mntot=MNTOT, si=2.0, norm=6.0,
                  device=dev, **PROD)
+    masses_zero()
     mt.march_tri.launches = 0
     ev.evolve()
     n_ev = mt.march_tri.launches
+    masses_took("evolver")
     check(n_ev >= 1, "Evolver went through the kernel")
     flux = torch.as_tensor(ev.get_flux())
     check(torch.isfinite(flux).all() and (flux >= 0).all(),
@@ -318,12 +387,14 @@ def main():
     grid_scan(params, cfg)                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    masses_zero()
     mt.march_tri.launches = 0
     t0 = time.perf_counter()
     res = grid_scan(params, cfg)
     torch.cuda.synchronize()
     t_evolve = time.perf_counter() - t0
     main_launches = mt.march_tri.launches
+    masses_took("grid_scan")
     check(main_launches >= 1, "grid_scan launched the kernel")
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(res.flux_fla).all()), "grid_scan flux finite")
@@ -400,9 +471,11 @@ def main():
     p8 = param_grid(torch.logspace(5, 8, 8, dtype=torch.float64), [1e-2],
                     mntot=MNTOT, si=2.0, norm=6.0, device=dev)
     grid_scan(p8, cfg_d)                         # warm-up
+    masses_zero()
     mt.march_tri.launches = 0
     res_d = grid_scan(p8, cfg_d)
     n_dirac = mt.march_tri.launches
+    masses_took("dirac")
     check(n_dirac >= 1, "Dirac grid_scan launched the kernel")
     check(bool(torch.isfinite(res_d.flux_fla).all()), "Dirac flux finite")
     check(bool((res_d.flux >= 0).all()), "Dirac flux non-negative")
@@ -468,7 +541,9 @@ def main():
     k2 = schannel_phases(dev, card, fitted["k2_target_launches"])
     cli_phase(card)
     eshard_phase(dev, card)
-    emit(kernels=[k1, k2])
+    masses_cuda.spectrum = launch_masses
+    k3 = masses_entry()
+    emit(kernels=[k1, k2, k3])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -492,9 +567,11 @@ def trisolve_f64_phase(dev, card, params, k1_res):
 
     ev64 = Evolver(device=dev, march="trisolve", **CLEAN_POINT, **CLEAN)
     ev64.evolve()
+    masses_zero()
     mt.march_tri.launches = 0
     ev_k1 = Evolver(device=dev, **CLEAN_POINT, **CLEAN).evolve()
     k1_launches = mt.march_tri.launches
+    masses_took("trisolve_f64_partner")
     check(k1_launches >= 1, "the clean point's partner went through K1")
     f64 = ev64._result.flux_fla
     check(bool(torch.isfinite(f64).all()) and bool((f64 >= 0).all()),
@@ -584,10 +661,12 @@ def phiphi_phase(dev, card):
     grid_scan(params, cfg, pp_tables=ppt)        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    masses_zero()
     mt.march_tri.launches = 0
     res = grid_scan(params, cfg, pp_tables=ppt)
     torch.cuda.synchronize()
     launches = mt.march_tri.launches
+    masses_took("phiphi")
     peak = torch.cuda.max_memory_allocated()
     check(launches == 1, f"the phi-phi grid_scan launched K1 once: {launches}")
     check(bool(torch.isfinite(res.flux_fla).all()), "phi-phi flux finite")
@@ -681,10 +760,12 @@ def evolver_defaults_phase(dev):
     from nusiprop_tpu_torch.models import diagnostics, mixing, transport
     from nusiprop_tpu_torch.ops import march_tri as mt
 
+    masses_zero()
     mt.march_tri.launches = 0
     ev = Evolver(mphi=6e5, g=0.03, mntot=0.1, si=2.5)
     ev.evolve()
     launches = mt.march_tri.launches
+    masses_took("evolver_defaults")
     check(launches == 1, f"the default Evolver launched K1 once: {launches}")
     check(ev.device.type == "cuda" and ev.config.phiphi
           and ev._pp_tables.device.type == "cuda",
@@ -725,9 +806,11 @@ def evolver_defaults_phase(dev):
     # the plain phi
     kw = dict(mphi=6e5, g=0.03, mntot=0.1, si=2.5, source="powerlaw")
     pl = Evolver(**kw)
+    masses_zero()
     mt.march_tri.launches = 0
     pl.evolve()
     pl_launches = mt.march_tri.launches
+    masses_took("evolver_defaults_powerlaw")
     check(pl_launches == 1,
           f"the power-law defaults launched K1 once: {pl_launches}")
     p1 = pl.params.map(lambda x: x[None])
@@ -789,12 +872,14 @@ def checkpoint_phase(dev, card, params, res):
                  E_nu=first.E_nu[0].cpu().numpy())
         visited = []
         torch.cuda.synchronize()
+        masses_zero()
         mt.march_tri.launches = 0
         t0 = time.perf_counter()
         out = checkpointed_grid_scan(params, cfg, path, chunk_size=C,
                                      progress=lambda c, n: visited.append(c))
         wall = time.perf_counter() - t0
         launches = mt.march_tri.launches
+        masses_took("checkpointed_grid_scan")
         left = sorted(f for f in os.listdir(tmp) if "chunk" in f)
     finally:
         shutil.rmtree(tmp)
@@ -836,9 +921,11 @@ def fit_phase(dev, card):
 
     cfg = Config(**FIT_CFG)
     true = PhysicsParams.create(g=1e-2, device=dev, **FIT_POINT)
+    masses_zero()
     mds.march_ds_batched.launches = 0
     target = transport.evolve(true, cfg).flux_fla
     n_target = mds.march_ds_batched.launches
+    masses_took("fit_target")
     check(n_target == 1, f"the fit target went through K2 once: {n_target}")
 
     class TimedAdam(torch.optim.Adam):
@@ -855,6 +942,7 @@ def fit_phase(dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mt.march_tri.launches = mds.march_ds_batched.launches = 0
+    masses_zero()
     t0 = time.perf_counter()
     res = fit(cfg, target, init, fit_fields=("g",), steps=FIT_STEPS,
               learning_rate=0.1,
@@ -862,6 +950,7 @@ def fit_phase(dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     inside = (mt.march_tri.launches, mds.march_ds_batched.launches)
+    fit_masses, fit_masses_plain = masses_took("fit")
     peak = torch.cuda.max_memory_allocated()
     check(inside == (0, 0), f"fit launched no K1 or K2: {inside}")
     lg = float(torch.log10(res.params.g))
@@ -908,6 +997,8 @@ def fit_phase(dev, card):
           "a grad-enabled evolve through K2 raises before the launch")
     emit(phase="fit", N_bins_E=cfg.N_bins_E, steps=FIT_STEPS,
          target_k2_launches=n_target, k1_k2_launches_in_fit=list(inside),
+         masses_launches_in_fit=fit_masses,
+         masses_plain_on_card_in_fit=fit_masses_plain,
          log10_g=lg, loss=float(res.loss),
          history_first_last=[float(res.history[0]),
                              float(res.history[-1])],
@@ -935,12 +1026,17 @@ def fisher_phase(dev, card):
     fisher(cfg, p)                                  # warm-up
     torch.cuda.synchronize()
     mt.march_tri.launches = mds.march_ds_batched.launches = 0
+    masses_zero()
     t0 = time.perf_counter()
     F, cov = fisher(cfg, p, fit_fields=("g", "mphi"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     inside = (mt.march_tri.launches, mds.march_ds_batched.launches)
     check(inside == (0, 0), f"fisher launched no K1 or K2: {inside}")
+    # inside torch.func.jvp the spectrum takes its twin, counted on the card
+    n_masses, n_plain = masses_took("fisher")
+    check(n_masses == 0 and n_plain >= 1,
+          f"fisher ran the mass twin on the card: {n_masses}, {n_plain}")
     check(F.is_cuda and F.dtype == torch.float64, "F on the card, float64")
     w, v = np.linalg.eigh(F.cpu().numpy())
     ridge = v[:, 0] / np.linalg.norm(v[:, 0])
@@ -949,7 +1045,8 @@ def fisher_phase(dev, card):
     check(along < 1e-2, f"the ridge lies along (1, 1): {ridge}")
     emit(phase="fisher", N_bins_E=cfg.N_bins_E, F=F.cpu().tolist(),
          eigenvalues=w.tolist(), ridge=ridge.tolist(), ridge_off_1_1=along,
-         wall_s=wall, k1_k2_launches=list(inside), card=card)
+         wall_s=wall, k1_k2_launches=list(inside),
+         masses_launches=n_masses, masses_plain_on_card=n_plain, card=card)
 
 
 def sharded_phase(dev, card, params, cfg, ref):
@@ -965,12 +1062,14 @@ def sharded_phase(dev, card, params, cfg, ref):
     out = {}
     for key, devices in (("1", None), ("2", [f"cuda:{dev.index or 0}"] * 2)):
         torch.cuda.synchronize()
+        masses_zero()
         mds.march_ds_batched.launches = 0
         t0 = time.perf_counter()
         res = sharded_grid_scan(params, cfg, devices=devices)
         torch.cuda.synchronize()
         out["wall_" + key] = time.perf_counter() - t0
         out["launches_" + key] = mds.march_ds_batched.launches
+        masses_took("sharded_grid_scan_" + key)
         check(torch.equal(res.flux_fla, ref.flux_fla),
               f"sharded_grid_scan ({devices}) equals grid_scan bitwise")
     n_dev = torch.cuda.device_count()
@@ -1053,9 +1152,11 @@ def schannel_phases(dev, card, fit_target_launches):
     # ---- Evolver, march "auto" (rank1 f64), against the golden file ----
     ev = Evolver(device=dev, **GOLDEN)
     check(ev.config.march == "auto", "Evolver default march")
+    masses_zero()
     mds.march_ds_batched.launches = 0
     ev.evolve()
     n_ev = mds.march_ds_batched.launches
+    masses_took("schannel_evolver")
     check(n_ev >= 1, "the s-channel Evolver went through K2")
     ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "data", "data_massless.txt"),
@@ -1078,8 +1179,10 @@ def schannel_phases(dev, card, fit_target_launches):
     grid_scan(params, Config(**dict(SCHANNEL, march="rank1")))  # warm-up
     for march in ("rank1", "rank1_f32"):
         c = Config(**dict(SCHANNEL, march=march))
+        masses_zero()
         mds.march_ds_batched.launches = 0
         res = grid_scan(params, c)                   # kept
+        masses_took("schannel_grid_scan_" + march)
         if march == "rank1":
             n_gs = mds.march_ds_batched.launches
             check(n_gs >= 1, "grid_scan(rank1) launched K2")
@@ -1131,10 +1234,12 @@ def schannel_phases(dev, card, fit_target_launches):
     mds.evolve_pallas(params, cfg)                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    masses_zero()
     mds.march_ds_batched.launches = 0
     fla = mds.evolve_pallas(params, cfg)
     torch.cuda.synchronize()
     launches = mds.march_ds_batched.launches
+    masses_took("evolve_pallas")
     check(launches >= 1, "evolve_pallas launched K2")
     peak = torch.cuda.max_memory_allocated()
     t_pallas = wall_times(lambda: mds.evolve_pallas(params, cfg))
@@ -1351,6 +1456,93 @@ def eshard_phase(dev, card):
          NEXT=NEXT, D=D, C=C, devices=devices, block_bytes=block_bytes,
          whole_table_bytes=whole_bytes, points=big, k1_k2_launches=launches,
          card=card)
+
+
+def masses_entry():
+    """The mass-spectrum kernel against its plain twin on the card at
+    every shape and ordering the main path gave it (MASSES_INPUTS): on
+    those total masses and on a spread of the same shape from 0 to 1.5 eV
+    (below the least sum the splittings allow, and above it), bit for
+    bit; at each shape its CUDA-event time, the twin's and the bound.
+    Checks that every path launched it and ran no twin on the card, but
+    fisher, which runs the twin (inside ``torch.func.jvp``). Returns its
+    entry of the kernels line."""
+    import torch
+
+    from nusiprop_tpu_torch.models import masses
+    from nusiprop_tpu_torch.ops import cuda_build
+
+    for path, n in MASSES_BY_PATH.items():
+        if path != "fisher":
+            check(n >= 1 and MASSES_PLAIN_BY_PATH[path] == 0,
+                  f"{path} launched the mass kernel and ran no twin on "
+                  f"the card: {n}, {MASSES_PLAIN_BY_PATH[path]}")
+    rows = []
+    for (shape, normal), x in sorted(MASSES_INPUTS.items(),
+                                     key=lambda kv: kv[0]):
+        n = x.numel()
+        spread = torch.linspace(0.0, 1.5, n, dtype=torch.float64,
+                                device=x.device).reshape(shape)
+        for inputs in (x, spread):
+            check(torch.equal(masses.mass_spectrum(inputs, normal),
+                              masses.mass_spectrum_plain(inputs, normal)),
+                  f"the mass kernel equals its twin bitwise at {shape}")
+        rows.append(dict(shape=list(shape), normal_ordering=normal,
+                         **time_masses(masses, x, normal),
+                         **masses_bound(n)))
+    big = max(rows, key=lambda r: math.prod(r["shape"]))
+    one = min(rows, key=lambda r: math.prod(r["shape"]))
+    return dict(
+        name="masses", route="cuda",
+        source="nusiprop_tpu_torch/csrc/masses.cu", replaces=None,
+        jax_counterpart="nusiprop_tpu/models/masses.py:63::mass_spectrum "
+                        "(XLA elementwise code, no pallas_call)",
+        launches=sum(MASSES_BY_PATH.values()),
+        launches_by_path=dict(MASSES_BY_PATH),
+        plain_on_card_by_path={p: n for p, n in MASSES_PLAIN_BY_PATH.items()
+                               if n},
+        bitwise_vs_plain=True,
+        ms=big["kernel_ms"], plain_ms=big["plain_ms"],
+        **{k: big[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                               "bound_flops")},
+        share_of_bound=big["bound_ms"] / big["kernel_ms"],
+        ms_batch1=one["kernel_ms"], library_ms=None,
+        design=ptxas_facts(cuda_build.BUILD_LOG.get("masses", "")),
+        shape=f"batch {math.prod(big['shape'])} (the largest the main path "
+              "gave it); every shape and ordering it gave in ``shapes``",
+        shapes=rows)
+
+
+def time_masses(masses, x, normal, reps=20):
+    """The mass spectrum of ``x`` on the card: the kernel's CUDA-event
+    time per launch over ``reps`` launches, and one run of the twin."""
+    import torch
+
+    masses.mass_spectrum(x, normal)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        masses.mass_spectrum(x, normal)
+    stop.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(stop) / reps
+    start.record()
+    masses.mass_spectrum_plain(x, normal)
+    stop.record()
+    torch.cuda.synchronize()
+    return dict(kernel_ms=kernel_ms, plain_ms=start.elapsed_time(stop))
+
+
+def masses_bound(n):
+    """The mass kernel's least time at ``n`` elements: 8 B read and 24 B
+    written an element against its float64 operations
+    (MASSES_STEP_FLOPS a bisection step, MASSES_SPECTRUM_FLOPS after). The
+    200 dependent steps of one element's chain are not in it: at any
+    batch the kernel takes at least their latency."""
+    from nusiprop_tpu_torch.models import masses
+
+    flops = n * (masses.N_BISECT * MASSES_STEP_FLOPS + MASSES_SPECTRUM_FLOPS)
+    return bound(32 * n, flops, F64_FLOPS)
 
 
 def k1_bound(B, NE, Nz):

@@ -6,11 +6,24 @@ The lightest mass solves the monotone constraint
     IO: mL + sqrt(mL^2 - dm32) + sqrt(mL^2 - dm32 - dm21) = mntot
 by a fixed-iteration bisection on [0, mntot], elementwise over any batch
 shape; masses are floored at MN_FLOOR (see the JAX module docstring).
+
+``mass_spectrum`` computes a CUDA tensor's spectrum in one launch of the
+hand-written kernel ``csrc/masses.cu`` (``ops/masses``), and everything
+else (Python floats, CPU tensors, and an ``mntot`` that autograd or
+``torch.func`` differentiates or batches) through ``mass_spectrum_plain``,
+the same bisection as tensor operations. The kernel rounds every
+operation as the twin's CUDA operations do (each IEEE round-to-nearest),
+so on the card both give the same spectrum, bit for bit. PyTorch's CPU
+square root of float64 is not always correctly rounded, so on CPU
+tensors the twin may differ from the card by a few ulp.
 """
 
 import torch
+from torch._C._functorch import maybe_current_level
+from torch.autograd import forward_ad
 
 from nusiprop_tpu_torch import constants
+from nusiprop_tpu_torch.ops import masses as masses_cuda
 from nusiprop_tpu_torch.utils import profiling
 
 MN_FLOOR = 1e-12
@@ -36,19 +49,60 @@ def lightest_mass(mntot, dmq21, dmq_at):
     return 0.5 * (lo + hi)
 
 
+def _splitting(normal_ordering: bool) -> float:
+    """The atmospheric splitting the ordering constrains: dm31 (> 0) for
+    normal ordering, dm32 (< 0) for inverted."""
+    return constants.DMQ31_NO if normal_ordering else constants.DMQ32_IO
+
+
+def mass_spectrum_plain(mntot, normal_ordering: bool):
+    """The spectrum as tensor operations (the kernel's plain twin): the
+    path of Python floats, CPU tensors and differentiated ``mntot``."""
+    dmq_at = _splitting(normal_ordering)
+    mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
+    if normal_ordering:
+        mn = torch.stack([mL, torch.sqrt(constants.DMQ21 + mL * mL),
+                          torch.sqrt(dmq_at + mL * mL)], dim=-1)
+    else:
+        m2 = torch.sqrt(mL * mL - dmq_at)
+        m1 = torch.sqrt(m2 * m2 - constants.DMQ21)
+        mn = torch.stack([m1, m2, mL], dim=-1)
+    return torch.clamp(mn, min=MN_FLOOR)
+
+
+def _on_card(mntot) -> bool:
+    return torch.is_tensor(mntot) and mntot.is_cuda
+
+
+def _differentiated(mntot) -> bool:
+    """True where a derivative or a batch of ``mntot`` may be traced:
+    inside a ``torch.func`` transform (``jvp``, ``vmap``, ``grad``; there
+    every result is wrapped, a constant's too, and has no storage), on a
+    forward-AD dual, or in grad mode on an ``mntot`` that requires grad.
+    A launch on ``data_ptr()`` would drop it."""
+    return (maybe_current_level() is not None
+            or forward_ad.unpack_dual(mntot).tangent is not None
+            or (torch.is_grad_enabled() and mntot.requires_grad))
+
+
 def mass_spectrum(mntot, normal_ordering: bool):
     """The three mass eigenvalues, shape ``mntot.shape + (3,)``
-    (nuSIprop.hpp:184-203)."""
+    (nuSIprop.hpp:184-203): one kernel launch (``ops/masses.spectrum``)
+    for a CUDA tensor that is not being differentiated or batched by a
+    transform, the plain twin otherwise; the same numbers either way.
+    Counts the kernel's launches in ``mass_spectrum.launches`` and the
+    twin's runs on CUDA tensors in ``mass_spectrum.plain_on_card``."""
     with profiling.span("nt.masses"):
-        if normal_ordering:
-            dmq_at = constants.DMQ31_NO
-            mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
-            mn = torch.stack([mL, torch.sqrt(constants.DMQ21 + mL * mL),
-                              torch.sqrt(dmq_at + mL * mL)], dim=-1)
-        else:
-            dmq_at = constants.DMQ32_IO
-            mL = lightest_mass(mntot, constants.DMQ21, dmq_at)
-            m2 = torch.sqrt(mL * mL - dmq_at)
-            m1 = torch.sqrt(m2 * m2 - constants.DMQ21)
-            mn = torch.stack([m1, m2, mL], dim=-1)
-        return torch.clamp(mn, min=MN_FLOOR)
+        if _on_card(mntot):
+            if not _differentiated(mntot):
+                out = masses_cuda.spectrum(
+                    mntot, normal_ordering, constants.DMQ21,
+                    _splitting(normal_ordering), MN_FLOOR, N_BISECT)
+                mass_spectrum.launches += 1
+                return out
+            mass_spectrum.plain_on_card += 1
+        return mass_spectrum_plain(mntot, normal_ordering)
+
+
+mass_spectrum.launches = 0
+mass_spectrum.plain_on_card = 0

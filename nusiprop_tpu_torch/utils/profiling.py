@@ -14,7 +14,8 @@ shared no-op context. The set, and the layer each marks:
   nt.entry         Evolver.set_parameters / evolve / get_flux(_fla),
                    parallel.scan.grid_scan                     (entry)
   nt.evolve        transport.evolve_batched, once per chunk    (dispatch)
-  nt.masses        masses.mass_spectrum (the 200-step bisection)
+  nt.masses        masses.mass_spectrum (the 200-step bisection; one
+                   launch of csrc/masses.cu on the card)
   nt.sources       sources.flux_fs_e0, transport._source_lum
   nt.tables        transport.build_tables          (table and row build)
   nt.tables.alpha  its alpha channel (kernels_nr_f32.alpha_table_f32)

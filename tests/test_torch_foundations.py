@@ -6,6 +6,7 @@ stages must agree to float64 round-off (rtol 1e-12, or 1e-12 of each
 row's max where the quantity is a difference of large terms).
 """
 
+import math
 import subprocess
 import sys
 
@@ -99,6 +100,19 @@ def test_mass_spectrum_matches(normal_ordering):
                   for m in mntot])
     t = masses.mass_spectrum(torch.as_tensor(mntot), normal_ordering).numpy()
     np.testing.assert_allclose(t, j, rtol=RTOL)
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (3,)], ids=str)
+@pytest.mark.parametrize("normal_ordering", [True, False])
+def test_mass_spectrum_matches_at_batch_shapes(shape, normal_ordering):
+    """``mntot.shape + (3,)`` at every batch shape, each element's own
+    spectrum (the CUDA kernel computes one element a thread)."""
+    mntot = np.array([0.1, 0.3, 1.0])[:math.prod(shape)].reshape(shape)
+    t = masses.mass_spectrum(torch.as_tensor(mntot), normal_ordering)
+    assert t.shape == shape + (3,) and t.dtype == torch.float64
+    j = np.stack([np.asarray(jmasses.mass_spectrum(m, normal_ordering))
+                  for m in mntot.reshape(-1)])
+    np.testing.assert_allclose(t.numpy().reshape(-1, 3), j, rtol=RTOL)
 
 
 @pytest.mark.parametrize("normal_ordering", [True, False])

@@ -1,6 +1,7 @@
 """The hand-written CUDA marches against their plain PyTorch twins on the
 card: K1 (ops/march_tri, csrc/march_tri.cu) and K2 (ops/march_ds,
-csrc/march_ds.cu).
+csrc/march_ds.cu); and the mass-spectrum kernel (ops/masses,
+csrc/masses.cu) against its twin, bit for bit.
 
 This module imports no JAX, so it runs where only PyTorch and the CUDA
 toolkit are installed (tests/conftest.py imports JAX; skip it there):
@@ -27,16 +28,23 @@ The storage-sharded E' march (``parallel/eshard``, float64, no launch)
 is held to the unsharded march on its own blocks (< 1e-12), and its
 column-block build to the full build's columns, bitwise. The last test
 holds the package's spans (``utils/profiling.span``) and K2 to one clock
-under the profiler.
+under the profiler. The mass-spectrum tests hold the kernel bitwise to the
+twin on the card over mixed batches (``masses_cases``), to one launch
+inside ``nt.masses``, to a side stream, and ``fisher`` over ``mntot``
+(the twin's route on the card) to the CPU's.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+import masses_cases
 import nusiprop_tpu_torch as nt
 from nusiprop_tpu_torch.config import Config
-from nusiprop_tpu_torch.models import grids, mixing, sources, transport
+from nusiprop_tpu_torch.models import (grids, masses, mixing, sources,
+                                       transport)
 from nusiprop_tpu_torch.ops import march_ds, march_tri
 
 torch.set_num_threads(2)
@@ -512,3 +520,104 @@ def test_k2_launches_inside_the_evolve_span_on_card(tmp_path):
     innermost = max(open_spans, key=lambda e: float(e["ts"]))
     assert innermost["name"] == "nt.evolve"
     assert float(k2[0]["ts"]) >= t
+
+
+def _mntot_batch(shape, normal):
+    """The cells' value at shape (); else the first ``prod(shape)`` of
+    ``masses_cases.mntot_batch``."""
+    if shape == ():
+        return torch.tensor(masses_cases.CELLS_MNTOT, dtype=torch.float64)
+    return masses_cases.mntot_batch(math.prod(shape), normal).reshape(shape)
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (1024,)], ids=str)
+@pytest.mark.parametrize("normal", [True, False], ids=["NO", "IO"])
+def test_masses_kernel_equals_the_twin_bitwise_on_card(shape, normal):
+    """csrc/masses.cu gives the plain twin's spectrum on the card bit for
+    bit, and so the IEEE order emulated in Python floats
+    (``masses_cases.kernel_order``), with the values on both sides of the
+    smallest allowed sum in one batch; the twin on CPU tensors within
+    ``masses_cases.CPU_RTOL`` (PyTorch's CPU float64 sqrt is not always
+    correctly rounded)."""
+    dev = _card()
+    x = _mntot_batch(shape, normal)
+    before = masses.mass_spectrum.launches
+    got = masses.mass_spectrum(x.to(dev), normal)
+    assert masses.mass_spectrum.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.float64
+    assert got.shape == shape + (3,) and got.is_contiguous()
+    assert torch.equal(got, masses.mass_spectrum_plain(x.to(dev), normal))
+    assert torch.equal(got.cpu(), masses_cases.kernel_order_batch(x, normal))
+    torch.testing.assert_close(got.cpu(),
+                               masses.mass_spectrum_plain(x, normal),
+                               rtol=masses_cases.CPU_RTOL, atol=0.0)
+
+
+def test_masses_kernel_is_one_launch_inside_its_span_on_card(tmp_path):
+    """Under the profiler the spectrum of a CUDA tensor is one kernel, the
+    masses kernel, whose launch call falls inside ``nt.masses``."""
+    import json
+
+    from nusiprop_tpu_torch.utils import profiling
+
+    dev = _card()
+    x = _mntot_batch((1,), True).to(dev)
+    masses.mass_spectrum(x, True)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        masses.mass_spectrum(x, True)
+        torch.cuda.synchronize()
+    with open(tmp_path / "trace.json") as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(kernels) == 1 and "masses_kernel" in kernels[0]["name"]
+    (span,) = [e for e in events if e["name"] == "nt.masses"]
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    launches = [e for e in events
+                if str(e["name"]).startswith(("cudaLaunch", "cuLaunch"))]
+    assert len(launches) == 1
+    assert t0 <= float(launches[0]["ts"]) < t1
+    assert (launches[0]["args"]["correlation"]
+            == kernels[0]["args"]["correlation"])
+
+
+def test_masses_kernel_runs_on_the_current_stream_on_card():
+    """Launched under a side stream, the kernel waits for that stream's
+    earlier work: a launch on any other stream would read the NaNs that
+    the stream's delayed copy overwrites."""
+    dev = _card()
+    base = _mntot_batch((1024,), True).to(dev)
+    want = masses.mass_spectrum_plain(base, True)
+    x = torch.full_like(base, float("nan"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        x.copy_(base)
+        got = masses.mass_spectrum(x, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fisher_over_mntot_on_card_matches_cpu():
+    """``fisher`` with ``mntot`` among the fit fields differentiates the
+    spectrum through the twin on the card (no launch of the kernel; the
+    twin's runs counted in ``mass_spectrum.plain_on_card``) and
+    gives the CPU's F within tests/test_torch_fit.py's gate (1e-6 of
+    max|F|)."""
+    dev = _card()
+    before = masses.mass_spectrum.launches
+    plain = masses.mass_spectrum.plain_on_card
+    cfg = Config(N_bins_E=40, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=False, phiphi=False)
+    point = (6e5, 1e-2, 0.1, 2.0, 6.0)
+    fields = ("g", "mntot")
+    F, _ = nt.fisher(cfg, nt.PhysicsParams.create(*point, device=dev),
+                     fit_fields=fields)
+    assert F.is_cuda and masses.mass_spectrum.launches == before
+    assert masses.mass_spectrum.plain_on_card > plain
+    F_cpu, _ = nt.fisher(cfg, nt.PhysicsParams.create(*point, device="cpu"),
+                         fit_fields=fields)
+    err = float((F.cpu() - F_cpu).abs().max() / F_cpu.abs().max())
+    assert err < 1e-6, err
