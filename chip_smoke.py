@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the three hand-written kernels from the checkout, one nvcc each,
+Builds the four hand-written kernels from the checkout, one nvcc each,
 started together: K1, the non-resonant fused march
 (nusiprop_tpu_torch/csrc/march_tri.cu), K2, the s-channel fused march in
-fp64 (nusiprop_tpu_torch/csrc/march_ds.cu), and the mass spectrum's
+fp64 (nusiprop_tpu_torch/csrc/march_ds.cu), the mass spectrum's
 200-step bisection in fp64 (nusiprop_tpu_torch/csrc/masses.cu), which
-every path below launches once per evolve or chunk. Then it runs, each
-phase printing one JSON line:
+every path below launches once per evolve or chunk, and the
+non-resonant alpha table's per-pair quadrature in float32
+(nusiprop_tpu_torch/csrc/alpha_nr.cu), which every path that builds the
+float32 tables launches once per build. Then it runs, each phase
+printing one JSON line:
 
   build       nvcc builds (ptxas register/smem report)
   device      card name, power limit, TF32 flags (forced off)
@@ -140,7 +143,14 @@ twin's runs on the card where there were any; at every shape and
 ordering the main path gave it, the kernel held bitwise against its twin
 on those inputs and on a spread of total masses from 0 to 1.5 eV, its
 CUDA-event time per launch, the twin's time and the bound; and ptxas's
-registers and spills), the card line, and as the last line
+registers and spills; the alpha kernel's entry has its launches in each
+path's run, held bitwise against its twin on every batch shape, bin count
+and variant the main path gave it (Majorana and Dirac, full tables and
+column blocks) and at the benchmark cell's shape (batch 128, NEXT 577,
+Majorana, raw: the ``alpha`` line), the CUDA-event
+time of its launch, of the whole table call and of the twin, the bound
+and ptxas's registers and spills of its Majorana and Dirac
+instantiations), the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises: the script exits
 non-zero and prints no last line. It needs a CUDA device.
 
@@ -152,7 +162,10 @@ its operations over the card's peak for their type: 67 TFLOP/s float32
 (K1) and 34 TFLOP/s float64 (K2, NVIDIA's H100 SXM data sheet), both
 outside the tensor cores; the mass kernel's, 32 bytes an element and its
 fp64 operations (``masses_bound``: without the latency of the 200
-dependent steps, which bounds it at every batch the main path gives).
+dependent steps, which bounds it at every batch the main path gives);
+the alpha kernel's, its packed inputs read once and its table written
+once against the float32 operations the cell's pairs need (ALPHA_OPS) at
+half the float32 peak (--fmad=false issues every operation alone).
 K1's entry also carries ``design_chain_ms``, the
 serial chain of its present design at assumed latencies: a diagnostic
 beside the bound, not part of it (``k1_bound``).
@@ -237,6 +250,21 @@ K2_LEVEL_FLOPS = 3
 # after the bisection (the last mid, the eigenvalues and the floor)
 MASSES_STEP_FLOPS = 10
 MASSES_SPECTRUM_FLOPS = 8
+# float32 operations of the alpha kernel (csrc/alpha_nr.cu) per (point,
+# state, pair), counted from its source, each add, multiply, division,
+# min/max/clamp and math-library call one: 81 x-nodes (25 with the far su
+# term, 17 without it, 13 Dirac), 27 q-nodes (27, 25, 25), 3 segments (2),
+# the pair's end (12, 8 Dirac), and near the resonance the su fit (150);
+# a pair off the floor mask takes the s channel and the sum alone (5)
+ALPHA_OPS = dict(far=81 * 25 + 27 * 27 + 3 * 2 + 12,
+                 near=81 * 17 + 27 * 25 + 3 * 2 + 12 + 150,
+                 dirac=81 * 13 + 27 * 25 + 3 * 2 + 8, masked=5)
+# the benchmark cell dsnb_nr.scan128: 128 points over the traffic's ranges
+# (mphi log-uniform over [1e3, 1e7] eV, g over [1e-5, 1e-1]), the first
+# near the resonance and at strong coupling
+ALPHA_CELL_BATCH = 128
+ALPHA_FIXED = [(1e3, 0.1), (3e3, 0.1), (1e4, 0.05), (1e4, 0.1),
+               (2.7e5, 1e-2), (1e5, 1e-2)]
 # the storage-sharded E' march (parallel/eshard): tests/test_sharding.py's
 # JAX config at 256 bins, then the SURVEY §5 regime at 10,000 bins (NEXT
 # 11,556) over 8 column blocks on this card; the JAX gate of 1e-12
@@ -251,13 +279,19 @@ ESHARD_ZMAX = 5.0   # the full redshift depth: no cut
 ESHARD_GATE = 1e-12
 
 
-# the mass-spectrum kernel (csrc/masses.cu) per path of the main path:
-# its launches in the path's run, and the runs of its plain twin on card
-# tensors there (masses_zero, masses_took); and the first total masses of
-# each shape and ordering the main path handed it (record_masses_inputs)
+# the mass-spectrum kernel (csrc/masses.cu) and the alpha kernel
+# (csrc/alpha_nr.cu) per path of the main path: their launches in the
+# path's run, and the runs of their plain twins on card tensors there
+# (counts_zero, counts_took); the first total masses of each shape and
+# ordering the main path handed the mass kernel (record_masses_inputs);
+# and the first per-bin arrays of each batch shape, bin count and variant
+# it handed the alpha kernel (record_alpha_inputs)
 MASSES_BY_PATH = {}
 MASSES_PLAIN_BY_PATH = {}
 MASSES_INPUTS = {}
+ALPHA_BY_PATH = {}
+ALPHA_PLAIN_BY_PATH = {}
+ALPHA_INPUTS = {}
 
 
 def emit(**kw):
@@ -283,20 +317,25 @@ def gated_rel(a, b):
     return float(((b - a).abs()[gate] / a.abs()[gate]).max())
 
 
-def masses_zero():
-    from nusiprop_tpu_torch.models import masses
+def counts_zero():
+    from nusiprop_tpu_torch.models import kernels_nr_f32, masses
 
     masses.mass_spectrum.launches = 0
     masses.mass_spectrum.plain_on_card = 0
+    kernels_nr_f32.alpha_table_f32.launches = 0
+    kernels_nr_f32.alpha_table_f32.plain_on_card = 0
 
 
-def masses_took(path):
-    """Record the mass-spectrum kernel's launches and its twin's runs on
-    card tensors since ``masses_zero()`` as ``path``'s; return both."""
-    from nusiprop_tpu_torch.models import masses
+def counts_took(path):
+    """Record the mass-spectrum kernel's and the alpha kernel's launches
+    and their twins' runs on card tensors since ``counts_zero()`` as
+    ``path``'s; return the mass kernel's two."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32, masses
 
     MASSES_BY_PATH[path] = masses.mass_spectrum.launches
     MASSES_PLAIN_BY_PATH[path] = masses.mass_spectrum.plain_on_card
+    ALPHA_BY_PATH[path] = kernels_nr_f32.alpha_table_f32.launches
+    ALPHA_PLAIN_BY_PATH[path] = kernels_nr_f32.alpha_table_f32.plain_on_card
     return MASSES_BY_PATH[path], MASSES_PLAIN_BY_PATH[path]
 
 
@@ -318,6 +357,36 @@ def record_masses_inputs():
     return launch
 
 
+def record_alpha_inputs():
+    """Keep a detached copy of the first per-bin arrays of each batch
+    shape, bin count, Majorana flag, per-state flag and column block that
+    the main path hands the alpha kernel (ALPHA_INPUTS). Returns the
+    launcher it wraps, to be put back."""
+    import torch
+
+    from nusiprop_tpu_torch.ops import alpha_nr
+
+    launch = alpha_nr.pairs
+
+    def copy(v):
+        if isinstance(v, tuple):
+            return tuple(copy(t) for t in v)
+        return v.detach().clone() if torch.is_tensor(v) else v
+
+    def recording(pb, N, *, majorana, per_state, cols_block):
+        batch = torch.broadcast_shapes(*(t.shape[:-2] for t in (
+            pb["tpb_f"], pb["smb_f"], pb["gr2"], pb["w"])))
+        key = (tuple(batch), N, bool(majorana), bool(per_state),
+               None if cols_block is None else tuple(map(int, cols_block)))
+        if key not in ALPHA_INPUTS:
+            ALPHA_INPUTS[key] = {k: copy(v) for k, v in pb.items()}
+        return launch(pb, N, majorana=majorana, per_state=per_state,
+                      cols_block=cols_block)
+
+    alpha_nr.pairs = recording
+    return launch
+
+
 def main():
     import torch
 
@@ -330,6 +399,7 @@ def main():
     from nusiprop_tpu_torch.ops import cuda_build
     from nusiprop_tpu_torch.ops import march_ds as mds
     from nusiprop_tpu_torch.ops import march_tri as mt
+    from nusiprop_tpu_torch.ops import alpha_nr as alpha_cuda
     from nusiprop_tpu_torch.ops import masses as masses_cuda
 
     dev = torch.device("cuda", 0)
@@ -337,11 +407,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = cuda_build.build("march_tri", "march_ds", "masses")
+    libs = cuda_build.build("march_tri", "march_ds", "masses", "alpha_nr")
     cuda_build.load("march_tri", mt._declare)
     cuda_build.load("march_ds", mds._declare)
     cuda_build.load("masses", masses_cuda._declare)
+    cuda_build.load("alpha_nr", alpha_cuda._declare)
     launch_masses = record_masses_inputs()
+    launch_alpha = record_alpha_inputs()
     emit(phase="build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas={name: [ln for ln in log.splitlines() if "ptxas" in ln]
                 for name, log in cuda_build.BUILD_LOG.items()})
@@ -358,11 +430,11 @@ def main():
     # ---- main path, part 1: the user-facing Evolver, one point ----
     ev = Evolver(mphi=1e6, g=1e-3, mntot=MNTOT, si=2.0, norm=6.0,
                  device=dev, **PROD)
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     ev.evolve()
     n_ev = mt.march_tri.launches
-    masses_took("evolver")
+    counts_took("evolver")
     check(n_ev >= 1, "Evolver went through the kernel")
     flux = torch.as_tensor(ev.get_flux())
     check(torch.isfinite(flux).all() and (flux >= 0).all(),
@@ -387,14 +459,14 @@ def main():
     grid_scan(params, cfg)                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     t0 = time.perf_counter()
     res = grid_scan(params, cfg)
     torch.cuda.synchronize()
     t_evolve = time.perf_counter() - t0
     main_launches = mt.march_tri.launches
-    masses_took("grid_scan")
+    counts_took("grid_scan")
     check(main_launches >= 1, "grid_scan launched the kernel")
     peak = torch.cuda.max_memory_allocated()
     check(bool(torch.isfinite(res.flux_fla).all()), "grid_scan flux finite")
@@ -471,11 +543,11 @@ def main():
     p8 = param_grid(torch.logspace(5, 8, 8, dtype=torch.float64), [1e-2],
                     mntot=MNTOT, si=2.0, norm=6.0, device=dev)
     grid_scan(p8, cfg_d)                         # warm-up
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     res_d = grid_scan(p8, cfg_d)
     n_dirac = mt.march_tri.launches
-    masses_took("dirac")
+    counts_took("dirac")
     check(n_dirac >= 1, "Dirac grid_scan launched the kernel")
     check(bool(torch.isfinite(res_d.flux_fla).all()), "Dirac flux finite")
     check(bool((res_d.flux >= 0).all()), "Dirac flux non-negative")
@@ -542,8 +614,10 @@ def main():
     cli_phase(card)
     eshard_phase(dev, card)
     masses_cuda.spectrum = launch_masses
+    alpha_cuda.pairs = launch_alpha
     k3 = masses_entry()
-    emit(kernels=[k1, k2, k3])
+    k4 = alpha_entry(dev)
+    emit(kernels=[k1, k2, k3, k4])
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -567,11 +641,11 @@ def trisolve_f64_phase(dev, card, params, k1_res):
 
     ev64 = Evolver(device=dev, march="trisolve", **CLEAN_POINT, **CLEAN)
     ev64.evolve()
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     ev_k1 = Evolver(device=dev, **CLEAN_POINT, **CLEAN).evolve()
     k1_launches = mt.march_tri.launches
-    masses_took("trisolve_f64_partner")
+    counts_took("trisolve_f64_partner")
     check(k1_launches >= 1, "the clean point's partner went through K1")
     f64 = ev64._result.flux_fla
     check(bool(torch.isfinite(f64).all()) and bool((f64 >= 0).all()),
@@ -661,12 +735,12 @@ def phiphi_phase(dev, card):
     grid_scan(params, cfg, pp_tables=ppt)        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     res = grid_scan(params, cfg, pp_tables=ppt)
     torch.cuda.synchronize()
     launches = mt.march_tri.launches
-    masses_took("phiphi")
+    counts_took("phiphi")
     peak = torch.cuda.max_memory_allocated()
     check(launches == 1, f"the phi-phi grid_scan launched K1 once: {launches}")
     check(bool(torch.isfinite(res.flux_fla).all()), "phi-phi flux finite")
@@ -760,12 +834,12 @@ def evolver_defaults_phase(dev):
     from nusiprop_tpu_torch.models import diagnostics, mixing, transport
     from nusiprop_tpu_torch.ops import march_tri as mt
 
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     ev = Evolver(mphi=6e5, g=0.03, mntot=0.1, si=2.5)
     ev.evolve()
     launches = mt.march_tri.launches
-    masses_took("evolver_defaults")
+    counts_took("evolver_defaults")
     check(launches == 1, f"the default Evolver launched K1 once: {launches}")
     check(ev.device.type == "cuda" and ev.config.phiphi
           and ev._pp_tables.device.type == "cuda",
@@ -806,11 +880,11 @@ def evolver_defaults_phase(dev):
     # the plain phi
     kw = dict(mphi=6e5, g=0.03, mntot=0.1, si=2.5, source="powerlaw")
     pl = Evolver(**kw)
-    masses_zero()
+    counts_zero()
     mt.march_tri.launches = 0
     pl.evolve()
     pl_launches = mt.march_tri.launches
-    masses_took("evolver_defaults_powerlaw")
+    counts_took("evolver_defaults_powerlaw")
     check(pl_launches == 1,
           f"the power-law defaults launched K1 once: {pl_launches}")
     p1 = pl.params.map(lambda x: x[None])
@@ -872,14 +946,14 @@ def checkpoint_phase(dev, card, params, res):
                  E_nu=first.E_nu[0].cpu().numpy())
         visited = []
         torch.cuda.synchronize()
-        masses_zero()
+        counts_zero()
         mt.march_tri.launches = 0
         t0 = time.perf_counter()
         out = checkpointed_grid_scan(params, cfg, path, chunk_size=C,
                                      progress=lambda c, n: visited.append(c))
         wall = time.perf_counter() - t0
         launches = mt.march_tri.launches
-        masses_took("checkpointed_grid_scan")
+        counts_took("checkpointed_grid_scan")
         left = sorted(f for f in os.listdir(tmp) if "chunk" in f)
     finally:
         shutil.rmtree(tmp)
@@ -921,11 +995,11 @@ def fit_phase(dev, card):
 
     cfg = Config(**FIT_CFG)
     true = PhysicsParams.create(g=1e-2, device=dev, **FIT_POINT)
-    masses_zero()
+    counts_zero()
     mds.march_ds_batched.launches = 0
     target = transport.evolve(true, cfg).flux_fla
     n_target = mds.march_ds_batched.launches
-    masses_took("fit_target")
+    counts_took("fit_target")
     check(n_target == 1, f"the fit target went through K2 once: {n_target}")
 
     class TimedAdam(torch.optim.Adam):
@@ -942,7 +1016,7 @@ def fit_phase(dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mt.march_tri.launches = mds.march_ds_batched.launches = 0
-    masses_zero()
+    counts_zero()
     t0 = time.perf_counter()
     res = fit(cfg, target, init, fit_fields=("g",), steps=FIT_STEPS,
               learning_rate=0.1,
@@ -950,7 +1024,7 @@ def fit_phase(dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     inside = (mt.march_tri.launches, mds.march_ds_batched.launches)
-    fit_masses, fit_masses_plain = masses_took("fit")
+    fit_masses, fit_masses_plain = counts_took("fit")
     peak = torch.cuda.max_memory_allocated()
     check(inside == (0, 0), f"fit launched no K1 or K2: {inside}")
     lg = float(torch.log10(res.params.g))
@@ -1026,7 +1100,7 @@ def fisher_phase(dev, card):
     fisher(cfg, p)                                  # warm-up
     torch.cuda.synchronize()
     mt.march_tri.launches = mds.march_ds_batched.launches = 0
-    masses_zero()
+    counts_zero()
     t0 = time.perf_counter()
     F, cov = fisher(cfg, p, fit_fields=("g", "mphi"))
     torch.cuda.synchronize()
@@ -1034,7 +1108,7 @@ def fisher_phase(dev, card):
     inside = (mt.march_tri.launches, mds.march_ds_batched.launches)
     check(inside == (0, 0), f"fisher launched no K1 or K2: {inside}")
     # inside torch.func.jvp the spectrum takes its twin, counted on the card
-    n_masses, n_plain = masses_took("fisher")
+    n_masses, n_plain = counts_took("fisher")
     check(n_masses == 0 and n_plain >= 1,
           f"fisher ran the mass twin on the card: {n_masses}, {n_plain}")
     check(F.is_cuda and F.dtype == torch.float64, "F on the card, float64")
@@ -1062,14 +1136,14 @@ def sharded_phase(dev, card, params, cfg, ref):
     out = {}
     for key, devices in (("1", None), ("2", [f"cuda:{dev.index or 0}"] * 2)):
         torch.cuda.synchronize()
-        masses_zero()
+        counts_zero()
         mds.march_ds_batched.launches = 0
         t0 = time.perf_counter()
         res = sharded_grid_scan(params, cfg, devices=devices)
         torch.cuda.synchronize()
         out["wall_" + key] = time.perf_counter() - t0
         out["launches_" + key] = mds.march_ds_batched.launches
-        masses_took("sharded_grid_scan_" + key)
+        counts_took("sharded_grid_scan_" + key)
         check(torch.equal(res.flux_fla, ref.flux_fla),
               f"sharded_grid_scan ({devices}) equals grid_scan bitwise")
     n_dev = torch.cuda.device_count()
@@ -1152,11 +1226,11 @@ def schannel_phases(dev, card, fit_target_launches):
     # ---- Evolver, march "auto" (rank1 f64), against the golden file ----
     ev = Evolver(device=dev, **GOLDEN)
     check(ev.config.march == "auto", "Evolver default march")
-    masses_zero()
+    counts_zero()
     mds.march_ds_batched.launches = 0
     ev.evolve()
     n_ev = mds.march_ds_batched.launches
-    masses_took("schannel_evolver")
+    counts_took("schannel_evolver")
     check(n_ev >= 1, "the s-channel Evolver went through K2")
     ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "data", "data_massless.txt"),
@@ -1179,10 +1253,10 @@ def schannel_phases(dev, card, fit_target_launches):
     grid_scan(params, Config(**dict(SCHANNEL, march="rank1")))  # warm-up
     for march in ("rank1", "rank1_f32"):
         c = Config(**dict(SCHANNEL, march=march))
-        masses_zero()
+        counts_zero()
         mds.march_ds_batched.launches = 0
         res = grid_scan(params, c)                   # kept
-        masses_took("schannel_grid_scan_" + march)
+        counts_took("schannel_grid_scan_" + march)
         if march == "rank1":
             n_gs = mds.march_ds_batched.launches
             check(n_gs >= 1, "grid_scan(rank1) launched K2")
@@ -1234,12 +1308,12 @@ def schannel_phases(dev, card, fit_target_launches):
     mds.evolve_pallas(params, cfg)                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    masses_zero()
+    counts_zero()
     mds.march_ds_batched.launches = 0
     fla = mds.evolve_pallas(params, cfg)
     torch.cuda.synchronize()
     launches = mds.march_ds_batched.launches
-    masses_took("evolve_pallas")
+    counts_took("evolve_pallas")
     check(launches >= 1, "evolve_pallas launched K2")
     peak = torch.cuda.max_memory_allocated()
     t_pallas = wall_times(lambda: mds.evolve_pallas(params, cfg))
@@ -1487,8 +1561,12 @@ def masses_entry():
             check(torch.equal(masses.mass_spectrum(inputs, normal),
                               masses.mass_spectrum_plain(inputs, normal)),
                   f"the mass kernel equals its twin bitwise at {shape}")
+        kernel_ms, _ = event_ms(lambda: masses.mass_spectrum(x, normal),
+                                reps=20)
+        plain_ms, _ = event_ms(
+            lambda: masses.mass_spectrum_plain(x, normal), warm=False)
         rows.append(dict(shape=list(shape), normal_ordering=normal,
-                         **time_masses(masses, x, normal),
+                         kernel_ms=kernel_ms, plain_ms=plain_ms,
                          **masses_bound(n)))
     big = max(rows, key=lambda r: math.prod(r["shape"]))
     one = min(rows, key=lambda r: math.prod(r["shape"]))
@@ -1513,24 +1591,137 @@ def masses_entry():
         shapes=rows)
 
 
-def time_masses(masses, x, normal, reps=20):
-    """The mass spectrum of ``x`` on the card: the kernel's CUDA-event
-    time per launch over ``reps`` launches, and one run of the twin."""
+def alpha_entry(dev):
+    """The alpha kernel against its plain twin on the card, bit for bit,
+    on every batch shape, bin count and variant the main path gave it
+    (ALPHA_INPUTS), and at the benchmark cell's shape (batch 128, NEXT
+    577, Majorana, raw) on points over the cell's traffic ranges; there
+    the CUDA-event time of its launch alone, of the whole
+    ``alpha_table_f32`` call (per-bin work, packing, launch) and of the
+    twin; the bound from the operations these inputs need (ALPHA_OPS by
+    the pairs' floor mask and near-resonance flag) and the bytes; ptxas's
+    registers and spills of both instantiations. Checks that no path ran
+    the twin on the card, and that the paths that build the f32 table
+    launched it. Returns its entry of the kernels line."""
+    import numpy as np
     import torch
 
-    masses.mass_spectrum(x, normal)
+    from nusiprop_tpu_torch.config import Config
+    from nusiprop_tpu_torch.models import grids, kernels_nr_f32, masses, mixing
+    from nusiprop_tpu_torch.ops import alpha_nr, cuda_build
+
+    for path, n in ALPHA_BY_PATH.items():
+        check(ALPHA_PLAIN_BY_PATH[path] == 0,
+              f"{path} ran the alpha twin on the card: "
+              f"{ALPHA_PLAIN_BY_PATH[path]}")
+    for path in ("evolver", "grid_scan", "dirac", "phiphi",
+                 "evolver_defaults", "checkpointed_grid_scan"):
+        check(ALPHA_BY_PATH.get(path, 0) >= 1,
+              f"{path} launched the alpha kernel")
+    recorded = []
+    for key, pb in sorted(ALPHA_INPUTS.items(), key=lambda kv: str(kv[0])):
+        batch, N, majorana, per_state, cols_block = key
+        kw = dict(majorana=majorana, per_state=per_state,
+                  cols_block=cols_block)
+        check(torch.equal(alpha_nr.pairs(pb, N, **kw),
+                          kernels_nr_f32._pairs_plain(pb, N, **kw)),
+              f"the alpha kernel equals its twin bitwise at {key}")
+        recorded.append(dict(batch=list(batch), NEXT=N, majorana=majorana,
+                             per_state=per_state,
+                             cols_block=cols_block and list(cols_block)))
+    check(any(r["majorana"] for r in recorded)
+          and any(not r["majorana"] for r in recorded),
+          "the main path gave the alpha kernel Majorana and Dirac tables")
+    B = ALPHA_CELL_BATCH
+    rng = np.random.default_rng(20261019)
+    mphi = 10.0 ** rng.uniform(3.0, 7.0, B)
+    g = 10.0 ** rng.uniform(-5.0, -1.0, B)
+    for i, (m, c) in enumerate(ALPHA_FIXED):
+        mphi[i], g[i] = m, c
+    gr = grids.build(Config(**PROD), dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    args = (gr.Emin_ext, gr.Emax_ext,
+            masses.mass_spectrum(torch.full((B,), MNTOT, **f64), True),
+            torch.tensor(g, **f64), torch.tensor(mphi, **f64),
+            torch.as_tensor(mixing.pmns_sq(True)[PROD["flav"]], device=dev))
+    N = gr.Emin_ext.shape[0]
+    kw = dict(majorana=True, per_state=False, cols_block=None)
+    pb = kernels_nr_f32._per_bin(*args, majorana=True, width_factor=None)
+    got = alpha_nr.pairs(pb, N, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms, want = event_ms(lambda: kernels_nr_f32._pairs_plain(
+        pb, N, **kw), warm=False)
+    plain_peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(got, want),
+          "the alpha kernel equals its twin bitwise at the cell's shape")
+    del want
+    packed = alpha_nr.pack(pb)
+    out = torch.zeros_like(got)
+    kernel_ms, _ = event_ms(lambda: alpha_nr.launch(
+        packed, out, N, 0, N, full=True, majorana=True, per_state=False),
+        reps=10)
+    check(torch.equal(out, got), "the timed launches give the same table")
+    call_ms, _ = event_ms(lambda: kernels_nr_f32.alpha_table_f32(
+        *args, majorana=True, raw=True), reps=5)
+    # the operations these inputs need: the pairs (b, e, r < c) by class
+    flags = packed[2]
+    upper = torch.triu(torch.ones(N, N, dtype=torch.bool, device=dev), 1)
+    ok = ((flags[..., :, None] & 1).bool() & (flags[..., None, :] & 2).bool()
+          & upper)
+    near = ok & (flags[..., None, :] & 4).bool()
+    n_ok, n_near = int(ok.sum()), int(near.sum())
+    n_pairs = B * 3 * N * (N - 1) // 2
+    ops = (ALPHA_OPS["far"] * (n_ok - n_near) + ALPHA_OPS["near"] * n_near
+           + ALPHA_OPS["masked"] * (n_pairs - n_ok))
+    nbytes = sum(t.numel() * t.element_size() for t in packed[:5]) \
+        + got.numel() * 4
+    # --fmad=false: every operation is its own instruction, so the rate is
+    # half the float32 peak that counts a fused multiply-add as two
+    b = bound(nbytes, ops, F32_FLOPS / 2)
+    # ptxas reports each instantiation after its "Compiling entry function"
+    # line: alpha_nr_kernel<false> (Dirac), then <true> (Majorana)
+    entries = cuda_build.BUILD_LOG.get("alpha_nr", "").split(
+        "Compiling entry function")[1:]
+    design = {("majorana" if "kernelILb1E" in e else "dirac"):
+              ptxas_facts(e) for e in entries} or ptxas_facts("")
+    emit(phase="alpha", batch=B, NEXT=N, bitwise_vs_plain=True,
+         kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
+         plain_peak_mem_gb=plain_peak / 1e9, pairs=n_pairs, ok_pairs=n_ok,
+         near_pairs=n_near, recorded=recorded, **b)
+    return dict(
+        name="alpha_nr", route="cuda",
+        source="nusiprop_tpu_torch/csrc/alpha_nr.cu", replaces=None,
+        jax_counterpart="nusiprop_tpu/models/kernels_nr_f32.py:195::"
+                        "alpha_table_f32 (XLA elementwise code, no "
+                        "pallas_call)",
+        launches=sum(ALPHA_BY_PATH.values()),
+        launches_by_path={p: n for p, n in ALPHA_BY_PATH.items() if n},
+        plain_on_card_by_path={p: n for p, n in ALPHA_PLAIN_BY_PATH.items()
+                               if n},
+        bitwise_vs_plain=True, ms=kernel_ms, call_ms=call_ms,
+        plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / kernel_ms,
+        library_ms=None, design=dict(threads=128, **design),
+        shape=f"batch {B}, NEXT {N}, Majorana, raw (the dsnb_nr.scan128 "
+              f"cell's); bitwise also on the {len(recorded)} inputs the "
+              "main path gave it, in ``recorded``",
+        recorded=recorded)
+
+
+def event_ms(fn, reps=1, warm=True):
+    """CUDA-event milliseconds per call of ``fn`` over ``reps`` calls,
+    after one untimed call where ``warm``; and the last call's result."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
-        masses.mass_spectrum(x, normal)
+        out = fn()
     stop.record()
     torch.cuda.synchronize()
-    kernel_ms = start.elapsed_time(stop) / reps
-    start.record()
-    masses.mass_spectrum_plain(x, normal)
-    stop.record()
-    torch.cuda.synchronize()
-    return dict(kernel_ms=kernel_ms, plain_ms=start.elapsed_time(stop))
+    return start.elapsed_time(stop) / reps, out
 
 
 def masses_bound(n):
@@ -1636,25 +1827,16 @@ def compare_ds(mds, rows, meta):
     import torch
 
     k = mds.march_ds_batched(rows, meta)
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    p = mds.march_ds_plain(rows, meta["W"], meta["n_steps"])
-    stop.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(stop)
-    reps = 10
-    start.record()
-    for _ in range(reps):
-        mds.march_ds_batched(rows, meta)
-    stop.record()
-    torch.cuda.synchronize()
+    plain_ms, p = event_ms(lambda: mds.march_ds_plain(
+        rows, meta["W"], meta["n_steps"]), warm=False)
+    kernel_ms, _ = event_ms(lambda: mds.march_ds_batched(rows, meta),
+                            reps=10, warm=False)
     check(bool(torch.isfinite(k).all()), "K2 output finite")
     rel = masked_rel(p, k)
     check(rel < DS_GATE, f"K2 vs plain gated rel {rel:.3e} < {DS_GATE}")
     return dict(max_rel_vs_plain=rel, bitwise=bool(torch.equal(k, p)),
                 max_abs_err=float((k - p).abs().max()),
-                kernel_ms=start.elapsed_time(stop) / reps, plain_ms=plain_ms)
+                kernel_ms=kernel_ms, plain_ms=plain_ms)
 
 
 def march_inputs(params, cfg, tables):
@@ -1685,19 +1867,6 @@ def public(cmp):
     return {k: v for k, v in cmp.items() if k != "plain"}
 
 
-def time_kernel(mt, A32, xs, W, NE, Nz, reps):
-    import torch
-
-    mt.march_tri(A32, xs, W, NE, Nz)
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        mt.march_tri(A32, xs, W, NE, Nz)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def compare(mt, m):
     """Kernel vs plain twin on the same tensors on the card (one plain
     run; it is bound by host launches). Returns the numbers and, under
@@ -1706,14 +1875,10 @@ def compare(mt, m):
 
     A32, xs, W, NE, Nz = m["A32"], m["xs"], m["W"], m["NE"], m["Nz"]
     k = mt.march_tri(A32, xs, W, NE, Nz)
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    p = mt.march_tri_plain(A32, xs, W, NE, Nz)
-    stop.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(stop)
-    kernel_ms = time_kernel(mt, A32, xs, W, NE, Nz, reps=20)
+    plain_ms, p = event_ms(lambda: mt.march_tri_plain(A32, xs, W, NE, Nz),
+                           warm=False)
+    kernel_ms, _ = event_ms(lambda: mt.march_tri(A32, xs, W, NE, Nz),
+                            reps=20)
     check(bool(torch.isfinite(k).all()), "kernel output finite")
     rel = gated_rel(p.double(), k.double())
     check(rel < GATE, f"kernel vs plain gated rel {rel:.3e} < {GATE}")

@@ -12,6 +12,12 @@ cofactor fit. The JAX module docstring carries the derivations.
 
 Batch convention: see ``kernels_f32``. ``alpha_table_f32`` returns
 (..., N, N), or the (..., N, C) column block of the storage-sharded march.
+
+On CUDA tensors that nothing traces, the alpha table's per-pair
+quadrature is one launch of the hand-written kernel ``csrc/alpha_nr.cu``
+(``ops/alpha_nr``); ``_pairs_plain`` is its plain twin, the same
+operations as tensor code, and on the card both give the same table bit
+for bit.
 """
 
 import math
@@ -22,6 +28,7 @@ import torch
 from nusiprop_tpu_torch.models.kernels import scalar_width, _shift_near_minus1
 from nusiprop_tpu_torch.models.kernels_f32 import (
     F32, _atandiff32, _logratio32, bc2, f)
+from nusiprop_tpu_torch.ops import alpha_nr, cuda_build
 
 PI = math.pi
 
@@ -125,45 +132,17 @@ def _near(vm, vp, gr2, ds):
     return (vmin * vmin + gr2) <= (_T_NEAR * ds) ** 2
 
 
-def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
-                    raw: bool = False, width_factor=None, cols_block=None):
-    """Non-resonant alpha table (s + t/u + tu + st/su channels) in native
-    float32.
-
-    Default: the float64 (..., N, N) strict-upper table with its g^4
-    prefactor applied. ``raw=True`` returns ``(table32, pref)`` — the
-    NORMALIZED float32 table and its float64 g^4 prefactor — for the
-    native-f32 trisolve march. ``Wf`` is the (3,) |U_f|^2 row;
-    ``Wf=None`` skips the eigenstate reduction and returns the per-state
-    (..., 3, N, N) float64 table (general couplings), where
-    ``width_factor`` scales the scalar width by sum(Q).
-
-    ``cols_block=(c0, C)`` (Python ints) builds only the column block
-    [c0, c0 + C) for the storage-sharded march (``parallel/eshard``): the
-    (..., N, C) block, (..., 3, N, C) per state, or ((..., N, C) f32,
-    pref) raw, with the strict-upper entries of the full build's columns
-    and zero elsewhere (columns past N included). An invalid pair takes
-    the adjacent-pair geometry, so no NaN leaks through a masked entry.
-    """
-    dev = Em.device
+def _per_bin(Em, Ep, mn, g, mphi, Wf, *, majorana, width_factor):
+    """The O(B·3·N) work of ``alpha_table_f32`` that the kernel and its
+    twin share, as tensor operations on the inputs' device: the float64
+    bin coordinates, the column-level resonance machinery, the st row
+    factor ``T_st_r``, the s channel's factors, the eigenstate weights and
+    the g^4 prefactor. Every array is (..., 3, N) but ``gr2``
+    (..., 1, 1), ``w`` (..., 3, 1) and ``pref`` (...); ``row_ok`` and
+    ``col_ok`` are the floor masks of a pair's row and column."""
     ga = scalar_width(g, mphi, majorana)
     if width_factor is not None:  # general couplings: width ~ sum(Q)
         ga = ga * width_factor
-    N = Em.shape[0]
-    if cols_block is not None:
-        c0, C = cols_block
-        rows = torch.arange(N, device=dev)[:, None].expand(N, C).reshape(-1)
-        cols_raw = (c0 + torch.arange(C, device=dev))[None, :].expand(
-            N, C).reshape(-1)
-        # strict upper triangle only; out-of-range and lower pairs take a
-        # safe in-range column and are zeroed at assembly
-        valid = (rows < cols_raw) & (cols_raw < N)
-        cols = torch.clamp(cols_raw, max=N - 1)
-    else:
-        r_np, c_np = np.triu_indices(N, k=1)
-        rows = torch.as_tensor(r_np, device=dev)
-        cols = torch.as_tensor(c_np, device=dev)
-        valid = None
 
     # ---- f64 coordinate precompute, per bin (..., 3, N) ----
     mn_c = mn[..., :, None]
@@ -186,24 +165,6 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
     gr = f(gr64)
     inv_gr = f(1.0 / gr64)
     gr2 = gr * gr
-    # per-pair gathers (..., 3, NT)
-    tp_f = tpb_f[..., rows]
-    smp_f = smb_f[..., cols]
-    if valid is not None:
-        # invalid pairs: the adjacent-pair geometry (x+y corner exactly 0)
-        tp_f = torch.where(valid, tp_f, -smp_f)
-    ok = (-tpb64[..., rows] >= _COORD_FLOOR) & (spb64[..., cols] >= _COORD_FLOOR)
-    if valid is not None:
-        ok = ok & valid
-    dt64 = dt_r64[..., rows]
-    ds64 = ds_c64[..., cols]
-    xy0_64 = smp_f + tp_f  # exactly 0 for adjacent pairs
-    tp_, dt = f(tp_f), f(dt64)
-    smp, ds = f(smp_f), f(ds64)
-    xy0 = f(xy0_64)
-    vm, vp = f(vm_c64)[..., cols], f(vp_c64)[..., cols]
-
-    dirac_half = 1.0 if majorana else 0.5
 
     # ---- column-level resonance machinery (O(N), gathered per pair) ----
     vm_c, vp_c, vsum_c = f(vm_c64), f(vp_c64), f(vsum_c64)
@@ -214,7 +175,84 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
     inv_xs5_c = [1.0 / (smb32 + c * ds_c) for c in _GL5_C]
     X_st_c = _x_res_integral(inv_xs5_c, vm_c, vp_c, vsum_c, ds_c, gr,
                              inv_gr, near_c, moments=(J0c, J1c, J2c))
-    near_res = near_c[..., cols]
+
+    # ---- st (+ su) interference: the target row's factor T_st ----
+    tpb32, dtr32 = f(tpb_f), f(dt_r64)
+    T_st_r = torch.zeros_like(tpb32)
+    for wj, cy in zip(_GL3_W, _GL3_C):
+        y = tpb32 + cy * dtr32
+        T_st_r = T_st_r + wj * 2.0 * y / (y - 1.0)
+    T_st_r = T_st_r * dtr32
+
+    # ---- s channel (nuSIprop.hpp:1264-1269): separable, unfloored ----
+    vm_s, vp_s = f(smb64 - 1.0), f(spb64 - 1.0)
+    ds_s = f(spb64 - smb64)
+    xw_m = vm_s * inv_gr
+    xw_p = vp_s * inv_gr
+    xy_s = xw_p * xw_m
+    u_s = (ds_s * inv_gr) / (1.0 + xy_s)
+    Q_exact = _atandiff32(u_s, xy_s) * inv_gr
+    G2 = 1.0 + gr2
+    smb_u32 = f(smb64)
+    Q_taylor = ((G2 + 2.0 * smb_u32) / (G2 * G2)) * ds_s + ds_s * ds_s / (G2 * G2)
+    Q_c = torch.where(f(spb64) < 1e-5, Q_taylor, Q_exact)
+    S_r = f(tmb64 - tpb64)
+
+    # ---- the eigenstate weights |U_f|^2/(2 mn), or 1/(2 mn) per state ----
+    w = (f(1.0 / (2.0 * mn_c)) if Wf is None
+         else f(Wf[:, None] / (2.0 * mn_c)))
+    return dict(
+        row_ok=-tpb64 >= _COORD_FLOOR, col_ok=spb64 >= _COORD_FLOOR,
+        tpb_f=tpb_f, smb_f=smb_f, dt_r64=dt_r64,
+        ds_c64=ds_c64, vm_c=vm_c, gr2=gr2, near_c=near_c,
+        J=(J0c, J1c, J2c), X_st_c=X_st_c, T_st_r=T_st_r, Q_c=Q_c, S_r=S_r,
+        w=w, pref=(g * g) * (g * g))
+
+
+def _pairs_plain(pb, N, *, majorana: bool, per_state: bool,
+                 cols_block):
+    """The per-pair quadrature of ``alpha_table_f32`` as tensor operations
+    over the gathered (..., 3, NT) pairs (the kernel's plain twin): the
+    t/u, tu and far-su segments, the st and near-su interference, the
+    ``ok`` mask, the s channel's pair product, the eigenstate reduction
+    and the assembly. Returns the float32 (..., N, C) table normalized by
+    g^4, or (..., 3, N, C) per state without the weights' sum."""
+    dev = pb["tpb_f"].device
+    if cols_block is not None:
+        c0, C = cols_block
+        rows = torch.arange(N, device=dev)[:, None].expand(N, C).reshape(-1)
+        cols_raw = (c0 + torch.arange(C, device=dev))[None, :].expand(
+            N, C).reshape(-1)
+        # strict upper triangle only; out-of-range and lower pairs take a
+        # safe in-range column and are zeroed at assembly
+        valid = (rows < cols_raw) & (cols_raw < N)
+        cols = torch.clamp(cols_raw, max=N - 1)
+    else:
+        r_np, c_np = np.triu_indices(N, k=1)
+        rows = torch.as_tensor(r_np, device=dev)
+        cols = torch.as_tensor(c_np, device=dev)
+        valid = None
+
+    gr2 = pb["gr2"]
+    # per-pair gathers (..., 3, NT)
+    tp_f = pb["tpb_f"][..., rows]
+    smp_f = pb["smb_f"][..., cols]
+    if valid is not None:
+        # invalid pairs: the adjacent-pair geometry (x+y corner exactly 0)
+        tp_f = torch.where(valid, tp_f, -smp_f)
+    ok = pb["row_ok"][..., rows] & pb["col_ok"][..., cols]
+    if valid is not None:
+        ok = ok & valid
+    dt64 = pb["dt_r64"][..., rows]
+    ds64 = pb["ds_c64"][..., cols]
+    xy0_64 = smp_f + tp_f  # exactly 0 for adjacent pairs
+    tp_, dt = f(tp_f), f(dt64)
+    smp, ds = f(smp_f), f(ds64)
+    xy0 = f(xy0_64)
+    vm = pb["vm_c"][..., cols]
+
+    dirac_half = 1.0 if majorana else 0.5
+    near_res = pb["near_c"][..., cols]
 
     # ---- tensor channels: t/u, tu interference, far-resonance su,
     #      sliced along lines of constant u (JAX module comment) ----
@@ -277,15 +315,9 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
     ch_tu = acc_tu * (1.0 / (16.0 * PI))
 
     # ---- st (+ su) interference: T_st (target row) x X_st (column) ----
-    tpb32, dtr32 = f(tpb_f), f(dt_r64)
-    T_st_r = torch.zeros_like(tpb32)
-    for wj, cy in zip(_GL3_W, _GL3_C):
-        y = tpb32 + cy * dtr32
-        T_st_r = T_st_r + wj * 2.0 * y / (y - 1.0)
-    T_st_r = T_st_r * dtr32
-    ch_st = T_st_r[..., rows] * X_st_c[..., cols]
+    ch_st = pb["T_st_r"][..., rows] * pb["X_st_c"][..., cols]
     if majorana:
-        J0p, J1p, J2p = J0c[..., cols], J1c[..., cols], J2c[..., cols]
+        J0p, J1p, J2p = (J[..., cols] for J in pb["J"])
         acc_su_near = torch.zeros_like(dt)
         for cj, wj in zip(_GL3_C, _GL3_W):
             hs = []
@@ -302,19 +334,8 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
 
     nr_sum = torch.where(ok, ch_tu + ch_st, 0.0)
 
-    # ---- s channel (nuSIprop.hpp:1264-1269): separable, unfloored ----
-    vm_s, vp_s = f(smb64 - 1.0), f(spb64 - 1.0)
-    ds_s = f(spb64 - smb64)
-    xw_m = vm_s * inv_gr
-    xw_p = vp_s * inv_gr
-    xy_s = xw_p * xw_m
-    u_s = (ds_s * inv_gr) / (1.0 + xy_s)
-    Q_exact = _atandiff32(u_s, xy_s) * inv_gr
-    G2 = 1.0 + gr2
-    smb_u32 = f(smb64)
-    Q_taylor = ((G2 + 2.0 * smb_u32) / (G2 * G2)) * ds_s + ds_s * ds_s / (G2 * G2)
-    Q_c = torch.where(f(spb64) < 1e-5, Q_taylor, Q_exact)
-    ch_s = (f(tmb64 - tpb64)[..., rows] * Q_c[..., cols]
+    # ---- s channel: the row factor x the column's Q ----
+    ch_s = (pb["S_r"][..., rows] * pb["Q_c"][..., cols]
             * (dirac_half / (8.0 * PI)))
 
     tot = nr_sum + ch_s
@@ -332,15 +353,68 @@ def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
         out[..., rows * N + cols] = res
         return out.reshape(res.shape[:-1] + (N, N))
 
-    pref = (g * g) * (g * g)
-    if Wf is None:  # per-state (..., 3, N, N) for general couplings
-        return assemble((f(1.0 / (2.0 * mn_c)) * tot).to(torch.float64)
-                        * pref[..., None, None])
-    w_e = f(Wf[:, None] / (2.0 * mn_c))
-    res32 = torch.sum(w_e * tot, dim=-2)  # (..., NT) f32, normalized by g^4
+    if per_state:
+        return assemble(pb["w"] * tot)
+    return assemble(torch.sum(pb["w"] * tot, dim=-2))
+
+
+def _on_card(Em) -> bool:
+    return Em.is_cuda
+
+
+def alpha_table_f32(Em, Ep, mn, g, mphi, Wf, *, majorana: bool,
+                    raw: bool = False, width_factor=None, cols_block=None):
+    """Non-resonant alpha table (s + t/u + tu + st/su channels) in native
+    float32.
+
+    Default: the float64 (..., N, N) strict-upper table with its g^4
+    prefactor applied. ``raw=True`` returns ``(table32, pref)`` — the
+    NORMALIZED float32 table and its float64 g^4 prefactor — for the
+    native-f32 trisolve march. ``Wf`` is the (3,) |U_f|^2 row;
+    ``Wf=None`` skips the eigenstate reduction and returns the per-state
+    (..., 3, N, N) float64 table (general couplings), where
+    ``width_factor`` scales the scalar width by sum(Q).
+
+    ``cols_block=(c0, C)`` (Python ints) builds only the column block
+    [c0, c0 + C) for the storage-sharded march (``parallel/eshard``): the
+    (..., N, C) block, (..., 3, N, C) per state, or ((..., N, C) f32,
+    pref) raw, with the strict-upper entries of the full build's columns
+    and zero elsewhere (columns past N included). An invalid pair takes
+    the adjacent-pair geometry, so no NaN leaks through a masked entry.
+
+    The per-bin work is tensor code (``_per_bin``). The per-pair
+    quadrature is one launch of the hand-written kernel
+    ``csrc/alpha_nr.cu`` (``ops/alpha_nr``) on CUDA tensors that nothing
+    traces, and its plain twin ``_pairs_plain`` on CPU tensors and where
+    autograd or ``torch.func`` traces an input (``cuda_build.traced``);
+    on the card both give the same table, bit for bit. The launcher
+    counts the kernel's launches in ``alpha_table_f32.launches``; this
+    counts the twin's runs on CUDA tensors in
+    ``alpha_table_f32.plain_on_card``.
+    """
+    N = Em.shape[0]
+    per_state = Wf is None
+    pb = _per_bin(Em, Ep, mn, g, mphi, Wf, majorana=majorana,
+                  width_factor=width_factor)
+    if _on_card(Em) and not cuda_build.traced(Em, Ep, mn, g, mphi, Wf,
+                                            width_factor):
+        res32 = alpha_nr.pairs(pb, N, majorana=majorana,
+                               per_state=per_state, cols_block=cols_block)
+    else:
+        if _on_card(Em):
+            alpha_table_f32.plain_on_card += 1
+        res32 = _pairs_plain(pb, N, majorana=majorana, per_state=per_state,
+                             cols_block=cols_block)
+    pref = pb["pref"]
+    if per_state:  # per-state (..., 3, N, N) for general couplings
+        return res32.to(torch.float64) * pref[..., None, None, None]
     if raw:
-        return assemble(res32), pref
-    return assemble(res32.to(torch.float64) * pref[..., None])
+        return res32, pref
+    return res32.to(torch.float64) * pref[..., None, None]
+
+
+alpha_table_f32.launches = 0
+alpha_table_f32.plain_on_card = 0
 
 
 # ---------------------------------------------------------------------------

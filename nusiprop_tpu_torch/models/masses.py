@@ -19,10 +19,9 @@ tensors the twin may differ from the card by a few ulp.
 """
 
 import torch
-from torch._C._functorch import maybe_current_level
-from torch.autograd import forward_ad
 
 from nusiprop_tpu_torch import constants
+from nusiprop_tpu_torch.ops import cuda_build
 from nusiprop_tpu_torch.ops import masses as masses_cuda
 from nusiprop_tpu_torch.utils import profiling
 
@@ -74,17 +73,6 @@ def _on_card(mntot) -> bool:
     return torch.is_tensor(mntot) and mntot.is_cuda
 
 
-def _differentiated(mntot) -> bool:
-    """True where a derivative or a batch of ``mntot`` may be traced:
-    inside a ``torch.func`` transform (``jvp``, ``vmap``, ``grad``; there
-    every result is wrapped, a constant's too, and has no storage), on a
-    forward-AD dual, or in grad mode on an ``mntot`` that requires grad.
-    A launch on ``data_ptr()`` would drop it."""
-    return (maybe_current_level() is not None
-            or forward_ad.unpack_dual(mntot).tangent is not None
-            or (torch.is_grad_enabled() and mntot.requires_grad))
-
-
 def mass_spectrum(mntot, normal_ordering: bool):
     """The three mass eigenvalues, shape ``mntot.shape + (3,)``
     (nuSIprop.hpp:184-203): one kernel launch (``ops/masses.spectrum``)
@@ -94,7 +82,7 @@ def mass_spectrum(mntot, normal_ordering: bool):
     twin's runs on CUDA tensors in ``mass_spectrum.plain_on_card``."""
     with profiling.span("nt.masses"):
         if _on_card(mntot):
-            if not _differentiated(mntot):
+            if not cuda_build.traced(mntot):
                 out = masses_cuda.spectrum(
                     mntot, normal_ordering, constants.DMQ21,
                     _splitting(normal_ordering), MN_FLOOR, N_BISECT)

@@ -12,7 +12,8 @@ plain PyTorch twins beside each kernel round them.
 
 The kernels are forward-only, as the Pallas marches of the JAX package
 are: a launch on ``data_ptr()`` records nothing for autograd, so
-``refuse_grad`` stops a launch whose result would be cut from the graph.
+``refuse_grad`` stops a launch whose result would be cut from the graph,
+and ``traced`` tells a dispatcher to take the plain twin instead.
 """
 
 import ctypes
@@ -23,6 +24,8 @@ import subprocess
 import tempfile
 
 import torch
+from torch._C._functorch import maybe_current_level
+from torch.autograd import forward_ad
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -119,3 +122,18 @@ def refuse_grad(kernel: str, tensors):
             "nusiprop_tpu_torch.fit/fisher, march='trisolve' or 'loop' "
             "(the float64 eager marches), or CPU tensors; run the forward "
             "flux under torch.no_grad()")
+
+
+def traced(*xs) -> bool:
+    """True where a derivative or a batch of any tensor among ``xs`` may
+    be traced: inside a ``torch.func`` transform (``jvp``, ``vmap``,
+    ``grad``; there every result is wrapped, a constant's too, and has no
+    storage), on a forward-AD dual, or in grad mode on a tensor that
+    requires grad. A launch on ``data_ptr()`` would drop it, so the
+    dispatchers take the plain twin there. Non-tensors are skipped."""
+    if maybe_current_level() is not None:
+        return True
+    ts = [x for x in xs if torch.is_tensor(x)]
+    return (any(forward_ad.unpack_dual(t).tangent is not None for t in ts)
+            or (torch.is_grad_enabled() and any(t.requires_grad
+                                                for t in ts)))

@@ -1,7 +1,8 @@
 """The hand-written CUDA marches against their plain PyTorch twins on the
 card: K1 (ops/march_tri, csrc/march_tri.cu) and K2 (ops/march_ds,
 csrc/march_ds.cu); and the mass-spectrum kernel (ops/masses,
-csrc/masses.cu) against its twin, bit for bit.
+csrc/masses.cu) and the non-resonant alpha table's kernel (ops/alpha_nr,
+csrc/alpha_nr.cu) against their twins, bit for bit.
 
 This module imports no JAX, so it runs where only PyTorch and the CUDA
 toolkit are installed (tests/conftest.py imports JAX; skip it there):
@@ -31,7 +32,11 @@ holds the package's spans (``utils/profiling.span``) and K2 to one clock
 under the profiler. The mass-spectrum tests hold the kernel bitwise to the
 twin on the card over mixed batches (``masses_cases``), to one launch
 inside ``nt.masses``, to a side stream, and ``fisher`` over ``mntot``
-(the twin's route on the card) to the CPU's.
+(the twin's route on the card) to the CPU's. The alpha tests hold its
+kernel bitwise to the twin at the benchmark cell's shape and in every
+variant of its arguments, to one launch inside ``nt.tables.alpha``, to a
+side stream, to the twin where an input is traced, and to one launch an
+evolve on the main path.
 """
 
 import math
@@ -432,7 +437,8 @@ def test_eshard_on_card_matches_unsharded(point):
     """The storage-sharded E' march at 256 bins over ["cuda:0"] * 4
     against the unsharded float64 trisolve march on the concatenated
     blocks: gated relative < 1e-12 (sum association only), flux_fla rtol
-    1e-11. No K1 or K2 launch: the march is float64 eager torch."""
+    1e-11. No K1 or K2 launch: the march is float64 eager torch; the
+    column blocks are built by the alpha kernel, one launch each."""
     from nusiprop_tpu_torch.models import kernels_nr_f32, masses
     from nusiprop_tpu_torch.parallel import eshard
 
@@ -441,8 +447,11 @@ def test_eshard_on_card_matches_unsharded(point):
     p = nt.PhysicsParams.create(*ESHARD_POINTS[point], device=dev)
     devices = ["cuda:0"] * 4
     before = (_launches("k1"), _launches("k2"))
+    alpha = kernels_nr_f32.alpha_table_f32.launches
     flux, flux_fla = eshard.evolve_esharded(p, cfg, devices=devices)
     assert (_launches("k1"), _launches("k2")) == before
+    # the four column blocks, each one launch of the alpha kernel
+    assert kernels_nr_f32.alpha_table_f32.launches == alpha + 4
     assert flux.is_cuda and flux.shape == (3, 256)
     gr = grids.build(cfg, dev)
     NEXT = gr.Emin_ext.shape[0]
@@ -463,7 +472,8 @@ def test_eshard_on_card_matches_unsharded(point):
 @pytest.mark.parametrize("D", [3, 4])
 def test_block_build_equals_full_build_on_card(D):
     """On the card every column block equals the same columns of the full
-    float32 quadrature build, bit for bit, with zero columns past NEXT."""
+    float32 quadrature build, bit for bit, with zero columns past NEXT;
+    the full build and each block are one launch of the alpha kernel."""
     from nusiprop_tpu_torch.models import kernels_nr_f32, masses
 
     dev = _card()
@@ -473,12 +483,14 @@ def test_block_build_equals_full_build_on_card(D):
     Wf = torch.as_tensor(mixing.pmns_sq(True)[cfg.flav], device=dev)
     args = (gr.Emin_ext, gr.Emax_ext, masses.mass_spectrum(p.mntot, True),
             p.g, p.mphi, Wf)
+    before = kernels_nr_f32.alpha_table_f32.launches
     full = kernels_nr_f32.alpha_table_f32(*args, majorana=True)
     N = full.shape[-1]
     C = -(-N // D)
     for d in range(D):
         blk = kernels_nr_f32.alpha_table_f32(*args, majorana=True,
                                              cols_block=(d * C, C))
+        assert kernels_nr_f32.alpha_table_f32.launches == before + 2 + d
         hi = min((d + 1) * C, N)
         assert torch.equal(blk[:, :hi - d * C], full[:, d * C:hi]), d
         assert (blk[:, hi - d * C:] == 0).all()
@@ -621,3 +633,234 @@ def test_fisher_over_mntot_on_card_matches_cpu():
                          fit_fields=fields)
     err = float((F.cpu() - F_cpu).abs().max() / F_cpu.abs().max())
     assert err < 1e-6, err
+
+
+# ---------------------------------------------------------------------------
+# the non-resonant alpha table's kernel (ops/alpha_nr, csrc/alpha_nr.cu)
+# ---------------------------------------------------------------------------
+
+# mphi near the resonance and at strong coupling first, then the cells'
+# traffic ranges (mphi log-uniform over [1e3, 1e7] eV, g over [1e-5, 1e-1])
+ALPHA_FIXED = [(1e3, 0.1), (3e3, 0.1), (1e4, 0.05), (1e4, 0.1),
+               (2.7e5, 1e-2), (1e5, 1e-2)]
+
+
+def _alpha_args(dev, n_bins, batch, seed=20261019):
+    """The alpha table's inputs at ``n_bins`` over lE in [4, 9], zmax 5
+    (NEXT 577 at 500 bins), for ``batch`` points (None: one point)."""
+    rng = np.random.default_rng(seed)
+    B = batch or 1
+    mphi = 10.0 ** rng.uniform(3.0, 7.0, B)
+    g = 10.0 ** rng.uniform(-5.0, -1.0, B)
+    for i, (m, c) in enumerate(ALPHA_FIXED[:B]):
+        mphi[i], g[i] = m, c
+    gr = grids.build(Config(N_bins_E=n_bins, lEmin=4.0, lEmax=9.0,
+                            zmax=5.0), dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    mn = masses.mass_spectrum(torch.full((B,), MNTOT, **f64), True)
+    args = [gr.Emin_ext, gr.Emax_ext, mn, torch.tensor(g, **f64),
+            torch.tensor(mphi, **f64),
+            torch.as_tensor(mixing.pmns_sq(True)[2], device=dev)]
+    if batch is None:
+        args[2:5] = [a[0] for a in args[2:5]]
+    return args
+
+
+# name -> (bins, batch, keywords): the benchmark cell's shape and every
+# variant of the kernel's arguments at small shapes
+ALPHA_VARIANTS = {
+    "cell_batch128_next577_raw": (500, 128, dict(raw=True)),
+    "majorana_f64": (40, 6, dict()),
+    "dirac_raw": (40, 6, dict(majorana=False, raw=True)),
+    "dirac_f64": (40, 6, dict(majorana=False)),
+    "one_point": (100, None, dict(raw=True)),
+    "per_state": (40, 6, dict(Wf=None, width_factor=True)),
+    "per_state_dirac": (40, 6, dict(Wf=None, width_factor=True,
+                                    majorana=False)),
+    "cols_block_past_n": (40, 6, dict(blocks=3)),
+    "cols_block_dirac_raw": (40, 6, dict(blocks=4, majorana=False,
+                                         raw=True)),
+    "cols_block_per_state": (40, 6, dict(blocks=3, Wf=None,
+                                         width_factor=True)),
+    "cols_block_wide": (200, 3, dict(blocks=2)),
+}
+
+
+@pytest.mark.parametrize("variant", list(ALPHA_VARIANTS))
+def test_alpha_kernel_equals_the_twin_bitwise_on_card(variant, monkeypatch):
+    """csrc/alpha_nr.cu gives the plain twin's table on the card bit for
+    bit (``torch.equal``, the prefactor and dtype included): at the
+    benchmark cell's shape (batch 128, NEXT 577, Majorana, raw) and over
+    every variant (Dirac, float64, one point, per state with a width
+    factor, column blocks with columns past N), at points near the
+    resonance and at strong coupling. One launch a call."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32
+
+    dev = _card()
+    n_bins, batch, kw = ALPHA_VARIANTS[variant]
+    kw = dict(kw)
+    kw.setdefault("majorana", True)
+    args = _alpha_args(dev, n_bins, batch)
+    if "Wf" in kw:
+        args[5] = kw.pop("Wf")
+    if kw.pop("width_factor", False):
+        kw["width_factor"] = torch.linspace(0.5, 2.0, batch,
+                                            dtype=torch.float64, device=dev)
+    blocks = kw.pop("blocks", None)
+    N = args[0].shape[0]
+    C = -(-N // blocks) if blocks else None
+    for d in range(blocks or 1):
+        if blocks:
+            kw["cols_block"] = (d * C, C)
+        before = kernels_nr_f32.alpha_table_f32.launches
+        got = kernels_nr_f32.alpha_table_f32(*args, **kw)
+        assert kernels_nr_f32.alpha_table_f32.launches == before + 1
+        with monkeypatch.context() as m:
+            m.setattr(kernels_nr_f32, "_on_card", lambda Em: False)
+            want = kernels_nr_f32.alpha_table_f32(*args, **kw)
+        assert kernels_nr_f32.alpha_table_f32.launches == before + 1
+        if kw.get("raw"):
+            assert got[0].dtype == torch.float32
+            assert torch.equal(got[1], want[1])
+            got, want = got[0], want[0]
+        assert got.is_cuda and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert bool((got != 0).any()) or blocks
+        assert torch.equal(got, want), variant
+
+
+def test_alpha_kernel_counts_no_launch_for_an_empty_batch_on_card(
+        monkeypatch):
+    """A batch of no points gives the twin's empty table and launches
+    nothing: ``alpha_table_f32.launches`` counts only launches that ran."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32
+
+    args = _alpha_args(_card(), 40, 6)
+    args[2:5] = [a[:0] for a in args[2:5]]
+    before = kernels_nr_f32.alpha_table_f32.launches
+    got = kernels_nr_f32.alpha_table_f32(*args, majorana=True, raw=True)[0]
+    assert kernels_nr_f32.alpha_table_f32.launches == before
+    with monkeypatch.context() as m:
+        m.setattr(kernels_nr_f32, "_on_card", lambda Em: False)
+        want = kernels_nr_f32.alpha_table_f32(*args, majorana=True,
+                                              raw=True)[0]
+    assert got.is_cuda and got.shape == want.shape and got.shape[0] == 0
+    assert torch.equal(got, want)
+
+
+def test_alpha_kernel_is_one_launch_inside_its_span_on_card(tmp_path):
+    """Under the profiler, the table build of the non-resonant main path
+    launches the alpha kernel once, its launch call inside
+    ``nt.tables.alpha``; the span's other launches are its per-bin
+    tensor work."""
+    import json
+
+    from nusiprop_tpu_torch.utils import profiling
+
+    dev = _card()
+    cfg = Config(N_bins_E=100, lEmin=4.0, lEmax=9.0, zmax=5.0,
+                 non_resonant=True, phiphi=False, march="trisolve_pallas")
+    p = nt.param_grid([1e4, 5e6], [1e-2], mntot=MNTOT, si=2.0, norm=6.0,
+                      device=dev)
+    transport.build_tables(p, cfg)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        transport.build_tables(p, cfg)
+        torch.cuda.synchronize()
+    with open(tmp_path / "trace.json") as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    alpha = [e for e in events if e.get("cat") == "kernel"
+             and "alpha_nr_kernel" in e["name"]]
+    assert len(alpha) == 1
+    corr = alpha[0]["args"]["correlation"]
+    (launch,) = [e for e in events
+                 if str(e["name"]).startswith(("cudaLaunch", "cuLaunch"))
+                 and e.get("args", {}).get("correlation") == corr]
+    (span,) = [e for e in events if e["name"] == "nt.tables.alpha"]
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    assert t0 <= float(launch["ts"]) < t1
+
+
+def test_alpha_kernel_runs_on_the_current_stream_on_card():
+    """Launched under a side stream, the kernel waits for that stream's
+    earlier work: a launch on any other stream would read the per-bin
+    arrays before the stream's delayed copy and prologue have written
+    them."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32
+
+    dev = _card()
+    args = _alpha_args(dev, 100, 8)
+    want = kernels_nr_f32.alpha_table_f32(*args, majorana=True, raw=True)[0]
+    g = torch.full_like(args[3], float("nan"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        g.copy_(args[3])
+        got = kernels_nr_f32.alpha_table_f32(*args[:3], g, *args[4:],
+                                             majorana=True, raw=True)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("trace", ["requires_grad", "func_jvp"])
+def test_alpha_twin_runs_where_inputs_are_traced_on_card(trace):
+    """In grad mode on an input that requires grad, and inside
+    ``torch.func.jvp``, the table comes from the twin on the card
+    (counted in ``alpha_table_f32.plain_on_card``, no launch), with the
+    kernel's values."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32
+
+    dev = _card()
+    args = _alpha_args(dev, 40, 4)
+    want = kernels_nr_f32.alpha_table_f32(*args, majorana=True, raw=True)[0]
+    launches = kernels_nr_f32.alpha_table_f32.launches
+    plain = kernels_nr_f32.alpha_table_f32.plain_on_card
+    if trace == "requires_grad":
+        Wf = args[5].clone().requires_grad_()
+        got = kernels_nr_f32.alpha_table_f32(*args[:5], Wf, majorana=True,
+                                             raw=True)[0]
+        assert got.requires_grad
+        got = got.detach()
+    else:
+        got, _ = torch.func.jvp(
+            lambda mphi: kernels_nr_f32.alpha_table_f32(
+                *args[:4], mphi, args[5], majorana=True, raw=True)[0],
+            (args[4],), (torch.ones_like(args[4]),))
+    assert kernels_nr_f32.alpha_table_f32.launches == launches
+    assert kernels_nr_f32.alpha_table_f32.plain_on_card == plain + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("entry", ["grid_scan", "Evolver"])
+def test_alpha_kernel_on_the_main_path_on_card(entry, monkeypatch):
+    """The non-resonant main path through ``grid_scan`` and ``Evolver``
+    builds its alpha table with one kernel launch an evolve and never
+    runs the twin on the card; its flux equals, bit for bit, the flux of
+    the same evolve with the twin's table."""
+    from nusiprop_tpu_torch.models import kernels_nr_f32
+
+    dev = _card()
+    cfg = dict(N_bins_E=120, lEmin=4.0, lEmax=9.0, zmax=5.0,
+               non_resonant=True, phiphi=False)
+
+    def evolve():
+        if entry == "grid_scan":
+            p = nt.param_grid([1e4, 1e5, 5e6], [1e-2], mntot=MNTOT, si=2.0,
+                              norm=6.0, device=dev)
+            return nt.grid_scan(p, Config(**cfg)).flux_fla
+        ev = nt.Evolver(mphi=1e5, g=1e-2, mntot=MNTOT, si=2.0, norm=6.0,
+                        device=dev, **cfg)
+        ev.evolve()
+        return torch.as_tensor(ev.get_flux_fla())
+
+    launches = kernels_nr_f32.alpha_table_f32.launches
+    plain = kernels_nr_f32.alpha_table_f32.plain_on_card
+    flux = evolve()
+    assert bool(torch.isfinite(flux).all())
+    assert kernels_nr_f32.alpha_table_f32.launches == launches + 1
+    assert kernels_nr_f32.alpha_table_f32.plain_on_card == plain
+    monkeypatch.setattr(kernels_nr_f32, "_on_card", lambda Em: False)
+    assert torch.equal(evolve(), flux)
+    assert kernels_nr_f32.alpha_table_f32.launches == launches + 1

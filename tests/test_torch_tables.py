@@ -116,3 +116,71 @@ def test_alpha_table_vs_scipy_referee_golden_nr():
                  (int(pk[0]), int(pk[1]))]:
         truth = _truth_entry(gr, Wf, mn, g, mphi, maj, j, m)
         assert abs(a[j, m] / truth - 1.0) < 5e-6, (j, m, a[j, m], truth)
+
+
+# the variants of alpha_table_f32 that the tests above leave out: the
+# per-state table of general couplings (Wf=None, scaled width) and the
+# column blocks of the storage-sharded march, Majorana and Dirac
+WIDTH_FACTORS = [1.7, 0.6, 2.3]
+
+
+@pytest.mark.parametrize("majorana", [True, False], ids=["maj", "dirac"])
+def test_alpha_table_f32_per_state_matches(majorana):
+    """``Wf=None`` with ``width_factor``: the (B, 3, N, N) float64 table
+    of the mass states against JAX's, 2e-6 of each point's max over its
+    states (the massless state's own table is ~1e-10 of the others', so
+    float32 round-off is larger against its own max)."""
+    gr, Wf, mphi, g, mntot = _inputs()
+    Em, Ep = np.asarray(gr.Emin_ext), np.asarray(gr.Emax_ext)
+    mn_t = masses.mass_spectrum(_t(mntot), True)
+    a = kernels_nr_f32.alpha_table_f32(
+        _t(Em), _t(Ep), mn_t, _t(g), _t(mphi), None, majorana=majorana,
+        width_factor=_t(WIDTH_FACTORS))
+    assert a.dtype == torch.float64 and a.shape == (len(POINTS), 3) + (
+        Em.shape[0],) * 2
+    for b in range(len(POINTS)):
+        mn = jmasses.mass_spectrum(mntot[b], True)
+        j = jknr.alpha_table_f32(
+            jnp.asarray(Em), jnp.asarray(Ep), mn, g[b], mphi[b], None,
+            majorana=majorana, width_factor=WIDTH_FACTORS[b])
+        _close(j, a[b].numpy())
+
+
+@pytest.mark.parametrize("per_state", [False, True], ids=["wf", "per_state"])
+@pytest.mark.parametrize("majorana", [True, False], ids=["maj", "dirac"])
+def test_alpha_table_f32_cols_block_matches(majorana, per_state):
+    """``cols_block``: three column blocks, the last past N, against
+    JAX's blocks (2e-6 of the point's max over the block), Majorana and
+    Dirac, with the |U|^2 weights and per state; zero wherever the pair
+    is off the strict upper triangle. With the weights, zero where JAX's
+    are zero (per state the massless state's float32 entries underflow in
+    other places)."""
+    gr, Wf, mphi, g, mntot = _inputs()
+    Em, Ep = np.asarray(gr.Emin_ext), np.asarray(gr.Emax_ext)
+    N = Em.shape[0]
+    C = -(-N // 3)
+    mn_t = masses.mass_spectrum(_t(mntot), True)
+    W = None if per_state else _t(Wf)
+    kw = dict(width_factor=_t(WIDTH_FACTORS)) if per_state else {}
+    for d in range(3):
+        blk = kernels_nr_f32.alpha_table_f32(
+            _t(Em), _t(Ep), mn_t, _t(g), _t(mphi), W, majorana=majorana,
+            cols_block=(d * C, C), **kw)
+        cols = d * C + np.arange(C)
+        off = ~((np.arange(N)[:, None] < cols) & (cols < N))
+        for b in range(len(POINTS)):
+            mn = jmasses.mass_spectrum(mntot[b], True)
+            jkw = dict(width_factor=WIDTH_FACTORS[b]) if per_state else {}
+            j = np.asarray(jknr.alpha_table_f32(
+                jnp.asarray(Em), jnp.asarray(Ep), mn, g[b], mphi[b],
+                None if per_state else jnp.asarray(Wf), majorana=majorana,
+                cols_block=(d * C, C), **jkw))
+            got = blk[b].numpy()
+            assert got.shape == j.shape
+            assert (got[..., off] == 0).all(), (d, b)
+            if np.abs(j).max() > 0:
+                _close(j, got)
+            else:
+                assert (got == 0).all(), (d, b)
+            if not per_state:
+                assert ((got == 0) == (j == 0)).all(), (d, b)
